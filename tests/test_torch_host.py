@@ -1,0 +1,93 @@
+"""Host setup of the PyTorch port (hifiles_tpu_torch): the copied numpy host
+modules give arrays identical to the JAX package's, and the port imports
+and builds a solver with JAX imports blocked."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from hifiles_tpu import HEX
+from hifiles_tpu.config.params import CYCLIC
+from hifiles_tpu.mesh.core import build_faces
+from hifiles_tpu.mesh.generate import periodic_hex_mesh
+from hifiles_tpu.ops.operators import build_tensor_ops
+from hifiles_tpu.solver import elements as jax_elements
+from hifiles_tpu.solver import ics as jax_ics
+
+from hifiles_tpu_torch.solver import elements as port_elements
+from hifiles_tpu_torch.solver import ics as port_ics
+
+sys.path.insert(0, os.path.dirname(__file__))
+from test_face_path import tgv_input  # noqa: E402
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize("n,order", [(3, 2), (4, 3)])
+def test_element_block_and_ic_identical(n, order):
+    p = tgv_input()
+    p.order = order
+    mesh = periodic_hex_mesh(n, n, n)
+    dc = np.array([p.dx_cyclic, p.dy_cyclic, p.dz_cyclic])
+    conn = build_faces(mesh, {0: CYCLIC}, dc)
+    ops = build_tensor_ops(HEX, order, p.upts_type_hexa, p.vcjh_scheme_hexa,
+                           p.eta_hexa)
+    bj = jax_elements.build_element_block(mesh, conn, ops, delta_cyclic=dc)
+    bt = port_elements.build_element_block(mesh, conn, ops, delta_cyclic=dc)
+    n_arrays = 0
+    for fld in dataclasses.fields(bj):
+        a, b = getattr(bj, fld.name), getattr(bt, fld.name)
+        if isinstance(a, np.ndarray):
+            assert isinstance(b, np.ndarray), fld.name
+            assert a.dtype == b.dtype and np.array_equal(a, b), fld.name
+            n_arrays += 1
+        elif fld.name != "ops":
+            assert a == b, fld.name
+    assert n_arrays > 10
+    nF = p.n_fields_for(3)
+    u_j = jax_ics.initial_condition(p, bj.pos_upts, nF)
+    u_t = port_ics.initial_condition(p, bt.pos_upts, nF)
+    assert u_j.shape == (n ** 3, (order + 1) ** 3, nF)
+    assert np.array_equal(u_j, u_t)
+
+
+_NO_JAX = r"""
+import sys
+
+class BlockJax:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib"):
+            raise ImportError("jax import blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, BlockJax())
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+torch.set_num_threads(1)
+import hifiles_tpu_torch as ht
+from chip_smoke import tgv_plain_input
+p = tgv_plain_input(order=2)
+s = ht.Solver(p, ht.periodic_hex_mesh(3, 3, 3), device="cpu")
+s.run(1, dt=p.dt)
+assert np.isfinite(s.residual_norm(1)).all()
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
+assert not loaded, loaded
+print("NO_JAX_OK")
+"""
+
+
+def test_port_runs_with_jax_blocked():
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    res = subprocess.run([sys.executable, "-c", _NO_JAX, ROOT],
+                         capture_output=True, text=True, env=env,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert "NO_JAX_OK" in res.stdout

@@ -1,0 +1,128 @@
+"""Solver of the PyTorch port (hifiles_tpu_torch.Solver) against the JAX
+Solver at f64 on the CPU: RK45 steps from a handed-over state, the state
+conversion, and the configurations that are not ported yet."""
+
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from hifiles_tpu import HEX
+from hifiles_tpu.config.params import ADIABAT_WALL, CYCLIC
+from hifiles_tpu.mesh.core import build_faces
+from hifiles_tpu.mesh.generate import channel_hex_mesh, periodic_hex_mesh
+from hifiles_tpu.ops.operators import build_tensor_ops
+from hifiles_tpu.solver.solver import Solver as JaxSolver
+
+import hifiles_tpu_torch
+from hifiles_tpu_torch.convert import state_from_numpy, state_to_numpy
+from hifiles_tpu_torch.solver.elements import build_element_block
+from hifiles_tpu_torch.solver.residual import ResidualConfig
+from hifiles_tpu_torch.solver.residual_soa import make_residual_soa
+
+sys.path.insert(0, os.path.dirname(__file__))
+from test_face_path import tgv_input  # noqa: E402
+
+torch.set_num_threads(1)
+
+
+def test_rk45_steps_match_jax():
+    """5 RK45 steps of a 4^3 p=3 TGV from a perturbed state handed across
+    with convert.state_from_numpy: the state and the L1 monitor row agree
+    at 1e-10 relative."""
+    p = tgv_input()
+    mesh = periodic_hex_mesh(4, 4, 4)
+    js = JaxSolver(p, mesh)
+    ts = hifiles_tpu_torch.Solver(p, mesh, device="cpu")
+    rng = np.random.default_rng(0)
+    js.u = js.u * (1.0 + 0.01 * jnp.asarray(rng.random(js.u.shape)))
+    ts.set_state(np.asarray(js.u), np.asarray(js.reg), js.time)
+    js.run(5, dt=p.dt)
+    ts.run(5, dt=p.dt)
+    assert ts.time == pytest.approx(js.time, rel=1e-15)
+    u_j, u_t = np.asarray(js.u), ts.u
+    assert u_t.shape == u_j.shape and np.isfinite(u_t).all()
+    assert np.abs(u_t - u_j).max() < 1e-10 * np.abs(u_j).max()
+    r_j, r_t = js.residual_norm(1), ts.residual_norm(1)
+    assert np.all(np.abs(r_t - r_j) < 1e-10 * np.abs(r_j))
+    p.test_case = 1                  # isentropic vortex: an analytic target
+    e_j, e_t = js.compute_error(2), ts.compute_error(2)
+    assert np.all(e_j[0] > 0)
+    assert np.all(np.abs(e_t - e_j) <= 1e-10 * np.abs(e_j))
+
+
+@pytest.mark.parametrize("adv_type", [0, 1, 2, 3, 4])
+def test_step_matches_jax(adv_type):
+    """One step of each RK scheme on a fixed linear rhs, in place on
+    tensors, against solver/step.py."""
+    from hifiles_tpu.solver.step import make_step_fn as jax_step_fn
+    from hifiles_tpu_torch.solver.step import make_step_fn
+    rng = np.random.default_rng(2)
+    u0, reg0, c = (rng.random((6, 5, 4)) for _ in range(3))
+    dt = 0.1
+    uj, rj = jax_step_fn(lambda u: -0.5 * u + c, adv_type)(
+        jnp.asarray(u0), jnp.asarray(reg0), dt)
+    ct = torch.from_numpy(c)
+    ut, rt = torch.from_numpy(u0.copy()), torch.from_numpy(reg0.copy())
+    ut2, rt2 = make_step_fn(lambda u: -0.5 * u + ct, adv_type)(ut, rt, dt)
+    assert ut2 is ut                 # updated in place
+    np.testing.assert_allclose(ut.numpy(), np.asarray(uj), rtol=0,
+                               atol=1e-14)
+    np.testing.assert_allclose(rt2.numpy(), np.asarray(rj), rtol=0,
+                               atol=1e-14)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_convert_round_trip_exact(dtype):
+    rng = np.random.default_rng(1)
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    u = rng.random((7, 8, 5)).astype(np_dtype)
+    reg = rng.random((7, 8, 5)).astype(np_dtype)
+    ut, rt = state_from_numpy(u, reg, "cpu", dtype)
+    assert ut.shape == (8, 5, 7) and ut.dtype == dtype and ut.is_contiguous()
+    assert torch.equal(ut[3, 2], torch.from_numpy(u[:, 3, 2]))
+    u2, r2 = state_to_numpy(ut, rt)
+    assert u2.dtype == np_dtype
+    assert np.array_equal(u2, u) and np.array_equal(r2, reg)
+
+
+def test_over_int_raises():
+    p = tgv_input()
+    p.over_int = 1
+    p.over_int_order = p.order + 2
+    with pytest.raises(NotImplementedError, match="over-integration"):
+        hifiles_tpu_torch.Solver(p, periodic_hex_mesh(3, 3, 3))
+
+
+def test_local_dt_raises():
+    p = tgv_input()
+    p.dt_type = 2
+    with pytest.raises(NotImplementedError, match="dt_type"):
+        hifiles_tpu_torch.Solver(p, periodic_hex_mesh(3, 3, 3))
+
+
+def test_boundary_faces_raise():
+    mesh = channel_hex_mesh(3, 2, 3)
+    dc = np.array([2 * np.pi, 0.0, np.pi])
+    conn = build_faces(mesh, {0: CYCLIC, 1: ADIABAT_WALL}, dc)
+    p = tgv_input()
+    ops = build_tensor_ops(HEX, 2, p.upts_type_hexa, p.vcjh_scheme_hexa,
+                           p.eta_hexa)
+    block = build_element_block(mesh, conn, ops, delta_cyclic=dc)
+    assert block.bdy_slot.size
+    cfg = ResidualConfig(viscous=True, riemann_solve_type=3, n_fields=5,
+                         mu_inf=1e-3)
+    with pytest.raises(NotImplementedError, match="boundary faces"):
+        make_residual_soa(block, cfg, "cpu", torch.float64)
+
+
+def test_cuda_device_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        hifiles_tpu_torch.Solver(tgv_input(), periodic_hex_mesh(3, 3, 3),
+                                 device="cuda")
