@@ -6,21 +6,26 @@
 Phases, each of which raises on failure (the script then exits non-zero and
 prints no result line):
   1. device  - require CUDA; print nvidia-smi's name and power limit;
-  2. build   - compile the hand-written kernels from hifiles_tpu_torch/csrc;
-  3. kernel  - hold each kernel against its plain PyTorch version on the
-               card at the main path's shapes, and time both;
-  4. slice   - the port on the card against the port on the CPU (f64, small
-               box), then the `plain` case of bench.py (TGV p=4 on 16^3
-               periodic hexes, viscous NS, HLLC, RK45, f32) for 10 + 10
-               steps, gated on bench.GOLDENS["plain"], with the kernels'
-               launch counts read around that run;
-  5. checks  - no JAX module was imported.
+  2. build   - compile the hand-written kernels from hifiles_tpu_torch/csrc
+               and print ptxas's registers and spills per instantiation;
+  3. kernel  - hold each variant of the volume kernel against its plain
+               PyTorch version on the card at the main path's shapes (f32
+               and f64, broadcast and full geometry), and time both;
+  4. small   - the port on the card against the port on the CPU (f64, 4^3
+               p=3, 2 steps) for `plain` and each feature configuration;
+  5. slices  - the `plain`, `smag`, `overint`, `rans` and `shock` cases of
+               bench.py (TGV p=4 on 16^3 periodic hexes, f32) for 10 + 10
+               steps each, gated on bench.GOLDENS, with the kernels' launch
+               counts read around each run;
+  6. checks  - no JAX module was imported.
 The last two lines are the kernel record and {"ok": true, "device": ...}.
 The script imports nothing of JAX.
 """
 
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -29,20 +34,34 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # bench.py's cross-platform gate for rows checked against the CPU golden
+# (bench.GATE_RTOL holds the wider per-configuration entries)
 GATE_RTOL = 5e-3
 # kernel vs plain version: max-abs error bound relative to max(scale, 1);
 # the two sum in different orders (see tests/test_pallas_volume.py: 2e-6)
 KERNEL_TOL = {"float32": 1e-5, "float64": 1e-12}
 N_TIMED = 20
+# device-side sleep ahead of a timed window, ~0.1 s at the H100's clock:
+# longer than the host takes to queue N_TIMED calls of either version
+SLEEP_CYCLES = 200_000_000
+SLICES = ["plain", "smag", "overint", "rans", "shock"]
+# the card-vs-CPU runs: bench configurations plus the options no bench
+# configuration reaches (WALE, the similarity flux, Sutherland viscosity)
+SMALL = {"plain": {}, "smag": {}, "overint": {}, "rans": {}, "shock": {},
+         "wale": dict(LES=1, SGS_model=1, C_s=0.1),
+         "similarity": dict(LES=1, SGS_model=4, C_s=0.1),
+         "sutherland": dict(fix_vis=0)}
 
 
 def log(msg):
     print(msg, flush=True)
 
 
-def tgv_plain_input(order=4):
-    """The `plain` deck of bench.py:278-300 (testcases Taylor_Green_vortex)."""
+def tgv_input(order=4, config="plain", **attrs):
+    """The TGV deck of bench.py:278-300 (testcases Taylor_Green_vortex) with
+    bench.configure(config) and ``attrs`` applied before setup_params, as
+    bench.py:297 does."""
     import numpy as np
+    import bench
     from hifiles_tpu.config.params import RunInput
     p = RunInput()
     p.equation = 0
@@ -63,24 +82,45 @@ def tgv_plain_input(order=4):
     p.L_free_stream = 1.0
     p.Mach_c_ic, p.T_c_ic, p.rho_c_ic = 0.1, 300.0, 0.0008421095852102401
     p.dt = 1.440389e-5
+    if config in SLICES:
+        bench.configure(p, config)
+    for k, v in attrs.items():
+        setattr(p, k, v)
     p.setup_params()
     return p
 
 
-def cuda_ms(fn, n=N_TIMED):
-    """Median device time of fn() in ms over n launches, CUDA events."""
+def make_solver(p, mesh, config, device, dtype):
+    """The port's Solver for a deck; for `rans`, nu~ is seeded at the
+    free-stream level as bench.py:305-309 does (the TGV IC leaves it 0)."""
+    from hifiles_tpu_torch import Solver
+    s = Solver(p, mesh, device=device, dtype=dtype)
+    if config == "rans":
+        s.u_soa[:, -1] = p.mu_tilde_inf
+    return s
+
+
+def cuda_ms(fn, n=N_TIMED, repeats=5):
+    """Device time of one fn() in ms: the median over ``repeats`` of the
+    mean over n calls, timed with CUDA events.  The n calls are queued
+    behind a device-side sleep, so the device runs them back to back and
+    the host's launch overhead (tens of us per call, as long as the volume
+    kernel itself) stays out of the window."""
     import torch
     for _ in range(3):
         fn()
+    torch.cuda.synchronize()
     times = []
-    for _ in range(n):
+    for _ in range(repeats):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         a.record()
-        fn()
+        for _ in range(n):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / n)
     return statistics.median(times)
 
 
@@ -101,111 +141,188 @@ def phase_device():
     return card
 
 
+def _demangle(names):
+    tool = shutil.which("c++filt")
+    if not tool or not names:
+        return names
+    res = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True, timeout=60)
+    out = res.stdout.splitlines()
+    return out if res.returncode == 0 and len(out) == len(names) else names
+
+
 def phase_build():
+    """Build the kernel library; print registers and spills of every
+    instantiation as ptxas reports them."""
     from hifiles_tpu_torch import backend
     t0 = time.perf_counter()
     report = backend.build_kernels(force=True)
     log(f"build: {backend.LIB_PATH} in {time.perf_counter() - t0:.2f} s")
+    rows, cur = [], None
     for line in report.splitlines():
-        if ("Compiling entry" in line or "registers" in line
-                or "spill" in line):
-            log(f"  ptxas: {line.strip()}")
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = dict(entry=m.group(1))
+            rows.append(cur)
+        elif cur is not None:
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                cur["spill_stores"] = int(m.group(1))
+                cur["spill_loads"] = int(m.group(2))
+    for row, name in zip(rows, _demangle([r["entry"] for r in rows])):
+        m = re.search(r"\w+<[^<>]*>", name)
+        log(f"  ptxas: {m.group(0) if m else name}: "
+            f"{row.get('registers')} registers, spill "
+            f"stores {row.get('spill_stores')} B, loads "
+            f"{row.get('spill_loads')} B")
 
 
-def volume_inputs(E, U, dtype, device, seed=0):
-    """Seeded state, gradient and adjugate planes at the main path's
-    shapes: u (U, 5, E), grad (3, U, 5, E), jg (3, 3, U, E)."""
+# The volume kernel's variants: what each configuration's volume stage
+# launches (volume.variant names the launch), the configuration whose run
+# counts its launches, and the solution-point count at that launch.
+VARIANTS = [
+    dict(name="ns", F=5, prm={}, path="plain"),
+    dict(name="smagorinsky", F=5, prm=dict(sgs=0), path="smag"),
+    dict(name="rans", F=6, prm={}, path="rans"),
+    dict(name="overint_cubature", F=5, prm=dict(viscous=False), U=343,
+         path="overint"),
+    dict(name="viscous_only", F=5, prm=dict(inviscid=False),
+         path="overint"),
+    dict(name="wale", F=5, prm=dict(sgs=1), path="wale"),
+    dict(name="added_flux", F=5, prm={}, extra=True, path="similarity"),
+    dict(name="sutherland", F=5, prm=dict(fix_vis=0), path="sutherland"),
+]
+# a viscous case whose viscous, SGS and SA terms are not lost in the
+# inviscid flux's scale (SGS cutoff delta ~ 1, mu = 0.05)
+KERNEL_PRM = dict(gamma=1.4, prandtl=0.72, mu=0.05, viscous=True,
+                  rt_inf=1.0, c_sth=0.368, prandtl_t=0.9, C_s=0.1,
+                  kappa=0.41)
+
+
+def volume_inputs(E, U, F, dtype, device, seed=0):
+    """Seeded operands at the main path's shapes: u (U, F, E) (for F = 6
+    nu~/mu spans [-2, 20]: both psi branches and the mu_t clip), grad
+    (3, U, F, E), jg (3, 3, U, E), delta and wdist (U, E) (both branches of
+    the Smagorinsky wall limit), an added flux (3, U, F, E)."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
-    u = rng.random((U, 5, E)) + 1.0
+    u = rng.random((U, F, E)) + 1.0
     u[:, 4] += 10.0                    # positive internal energy
-    grad = rng.random((3, U, 5, E)) * 1e-2
+    if F == 6:
+        u[:, 5] = KERNEL_PRM["mu"] * rng.uniform(-2.0, 20.0, (U, E))
+    grad = rng.normal(size=(3, U, F, E)) * 0.5
     jg = rng.random((3, 3, U, E))
+    delta = 0.5 + rng.random((U, E))
+    wdist = 0.5 * rng.random((U, E))
+    extra = rng.normal(size=(3, U, F, E)) * 0.1
     t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
-    return t(u), t(grad), t(jg)
+    return [t(a) for a in (u, grad, jg, delta, wdist, extra)]
 
 
-def phase_kernel(U, E):
-    """volume_tdisf against volume_tdisf_ref on the card; returns the record
-    of the main path's case (f32, viscous, one broadcast geometry column)."""
+def phase_kernel(E):
+    """Each variant of volume_tdisf against volume_tdisf_ref on the card;
+    returns {name: record} with the f32 broadcast-geometry error and the
+    kernel's and plain version's times."""
+    import dataclasses
     import torch
-    from hifiles_tpu_torch.solver.volume import (volume_tdisf,
+    from hifiles_tpu_torch.solver.volume import (VolumeParams, variant,
+                                                  volume_tdisf,
                                                   volume_tdisf_ref)
     dev = torch.device("cuda", 0)
-    kw = dict(gamma=1.4, mu=1e-3, prandtl=0.72)
-    main = None
-    for dtype in (torch.float32, torch.float64):
-        u, grad, jg_full = volume_inputs(E, U, dtype, dev)
-        for geo in ("broadcast", "full"):
-            jg = (jg_full[..., :1].contiguous() if geo == "broadcast"
-                  else jg_full)
-            for viscous in (True, False):
-                g = grad if viscous else None
-                out = volume_tdisf(u, g, jg, viscous=viscous, **kw)
-                ref = volume_tdisf_ref(u, g, jg, viscous=viscous, **kw)
+    base = VolumeParams(**KERNEL_PRM)
+    recs = {}
+    for v in VARIANTS:
+        prm = dataclasses.replace(base, **v["prm"])
+        U = v.get("U", 125)
+        v["key"] = variant(prm, v["F"], bool(v.get("extra")))
+        for dtype in (torch.float32, torch.float64):
+            u, grad, jg_full, delta_f, wdist_f, extra = volume_inputs(
+                E, U, v["F"], dtype, dev)
+            extra = extra if v.get("extra") else None
+            for geo in ("broadcast", "full"):
+                cut = (lambda t: t[..., :1].contiguous()) \
+                    if geo == "broadcast" else (lambda t: t)
+                args = (u, grad if prm.viscous else None, cut(jg_full), prm,
+                        cut(delta_f), cut(wdist_f), extra)
+                out = volume_tdisf(*args)
+                ref = volume_tdisf_ref(*args)
                 torch.cuda.synchronize()
                 err = (out - ref).abs().max().item()
                 scale = ref.abs().max().item()
                 bound = KERNEL_TOL[str(dtype)[6:]] * max(scale, 1.0)
-                ms = cuda_ms(lambda: volume_tdisf(u, g, jg, viscous=viscous,
-                                                  **kw))
-                plain_ms = cuda_ms(lambda: volume_tdisf_ref(
-                    u, g, jg, viscous=viscous, **kw))
-                log(f"kernel volume_tdisf {str(dtype)[6:]} geo={geo} "
-                    f"viscous={viscous}: max_abs_err {err:.3e} (bound "
-                    f"{bound:.3e}, scale {scale:.3e}) kernel {ms:.4f} ms "
-                    f"plain {plain_ms:.4f} ms")
+                line = (f"kernel volume_tdisf[{v['name']}] ({v['key']}, "
+                        f"U={U}) {str(dtype)[6:]} geo={geo}: max_abs_err "
+                        f"{err:.3e} (bound {bound:.3e}, scale {scale:.3e})")
+                if dtype == torch.float32 and geo == "broadcast":
+                    ms = cuda_ms(lambda: volume_tdisf(*args))
+                    plain_ms = cuda_ms(lambda: volume_tdisf_ref(*args))
+                    line += f" kernel {ms:.4f} ms plain {plain_ms:.4f} ms"
+                    recs[v["name"]] = dict(max_abs_err=err, ms=ms,
+                                           plain_ms=plain_ms)
+                log(line)
                 if not err <= bound:
                     raise AssertionError(
-                        f"volume_tdisf disagrees with its plain version: "
-                        f"{err} > {bound}")
-                if (dtype == torch.float32 and geo == "broadcast"
-                        and viscous):
-                    main = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-    return main
+                        f"volume_tdisf[{v['name']}] disagrees with its plain "
+                        f"version: {err} > {bound}")
+            del u, grad, jg_full, delta_f, wdist_f, extra
+    return recs
 
 
-def phase_slice_small():
+def phase_small(counts):
     """The port on the card against the port on the CPU (f64, 4^3 p=3,
-    2 steps): the whole slice, kernel included, at 1e-10 relative."""
+    2 steps) for each configuration of SMALL: the whole slice, kernel
+    included, at 1e-10 relative.  Adds each card run's launch counts to
+    ``counts``."""
     import numpy as np
     import torch
-    from hifiles_tpu_torch import Solver, periodic_hex_mesh
-    p = tgv_plain_input(order=3)
+    from hifiles_tpu_torch import periodic_hex_mesh
+    from hifiles_tpu_torch.solver.volume import volume_tdisf
     mesh = periodic_hex_mesh(4, 4, 4)
-    gpu = Solver(p, mesh, device="cuda", dtype=torch.float64)
-    cpu = Solver(p, mesh, device="cpu", dtype=torch.float64)
-    gpu.run(2, dt=p.dt)
-    cpu.run(2, dt=p.dt)
-    ug, uc = gpu.u, cpu.u
-    err = np.abs(ug - uc).max() / np.abs(uc).max()
-    rg, rc = gpu.residual_norm(1), cpu.residual_norm(1)
-    rerr = (np.abs(rg - rc) / np.abs(rc)).max()
-    log(f"slice f64 4^3 p=3, card vs CPU after 2 steps: state rel err "
-        f"{err:.3e}, residual row rel err {rerr:.3e}")
-    if not (np.isfinite(ug).all() and err < 1e-10 and rerr < 1e-10):
-        raise AssertionError("port on the card disagrees with the port on "
-                             "the CPU")
+    for name, attrs in SMALL.items():
+        p = tgv_input(order=3, config=name, **attrs)
+        gpu = make_solver(p, mesh, name, "cuda", torch.float64)
+        cpu = make_solver(p, mesh, name, "cpu", torch.float64)
+        volume_tdisf.by_variant.clear()
+        gpu.run(2, dt=p.dt)
+        torch.cuda.synchronize()
+        run_counts = dict(volume_tdisf.by_variant)
+        cpu.run(2, dt=p.dt)
+        ug, uc = gpu.u, cpu.u
+        err = np.abs(ug - uc).max() / np.abs(uc).max()
+        rg, rc = gpu.residual_norm(1), cpu.residual_norm(1)
+        rerr = (np.abs(rg - rc) / np.abs(rc)).max()
+        log(f"small {name} f64 4^3 p=3, card vs CPU after 2 steps: state "
+            f"rel err {err:.3e}, residual row rel err {rerr:.3e}; launches "
+            f"{run_counts}")
+        if not (np.isfinite(ug).all() and err < 1e-10 and rerr < 1e-10):
+            raise AssertionError(f"{name}: port on the card disagrees with "
+                                 "the port on the CPU")
+        counts[name] = run_counts
 
 
-def phase_slice(card, kernels):
-    """The `plain` bench case on the card, through the port's entry
-    points; returns the launch counts of the kernels during the run."""
+def phase_slice(card, name, counts):
+    """One bench case on the card at full size, through the port's entry
+    points; records its launch counts by variant in ``counts``."""
     import numpy as np
     import torch
     import bench
-    from hifiles_tpu_torch import Solver, periodic_hex_mesh
-    p = tgv_plain_input(order=4)
+    from hifiles_tpu_torch import periodic_hex_mesh
+    from hifiles_tpu_torch.solver.volume import volume_tdisf
+    p = tgv_input(order=4, config=name)
     mesh = periodic_hex_mesh(16, 16, 16)
     t0 = time.perf_counter()
-    s = Solver(p, mesh, device="cuda", dtype=torch.float32)
+    s = make_solver(p, mesh, name, "cuda", torch.float32)
     torch.cuda.synchronize()
-    log(f"slice plain: setup {time.perf_counter() - t0:.2f} s "
-        f"(E={s.block.n_eles}, U={s.ops.n_upts})")
+    log(f"slice {name}: setup {time.perf_counter() - t0:.2f} s "
+        f"(E={s.block.n_eles}, U={s.ops.n_upts}, F={s.n_fields})")
 
-    for k in kernels:
-        k.launches = 0
+    volume_tdisf.launches = 0
+    volume_tdisf.by_variant.clear()
     s.run(10, dt=p.dt)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -213,43 +330,52 @@ def phase_slice(card, kernels):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     row = s.residual_norm(1)
-    launches = {k.__name__: k.launches for k in kernels}
+    launches = volume_tdisf.launches
+    counts[name] = dict(volume_tdisf.by_variant)
 
     dof = mesh.n_cells * (p.order + 1) ** 3
     rate = dof * s.n_stages * 10 / wall
-    gold = np.asarray(bench.GOLDENS["plain"])
+    gold = np.asarray(bench.GOLDENS[name])
+    rtol = bench.GATE_RTOL.get(name, GATE_RTOL)
     rel = np.abs(row - gold) / np.abs(gold)
-    log(f"slice plain residual row {list(map(float, row))}")
-    log(f"slice plain golden       {list(map(float, gold))}")
-    log(f"slice plain worst rel err {rel.max():.3e} (gate {GATE_RTOL})")
-    log(f"slice plain rate {rate:.6e} DOF*RK-stage/s over 10 steps "
+    log(f"slice {name} residual row {list(map(float, row))}")
+    log(f"slice {name} golden       {list(map(float, gold))}")
+    log(f"slice {name} worst rel err {rel.max():.3e} (gate {rtol})")
+    log(f"slice {name} rate {rate:.6e} DOF*RK-stage/s over 10 steps "
         f"({wall:.4f} s) on [{card}]")
-    log(f"slice plain launches {launches}")
-    if not np.isfinite(row).all() or not rel.max() < GATE_RTOL:
-        raise AssertionError(f"plain residual row off the golden: {row}")
-    for name, n in launches.items():
-        if n < 10 * 2 * s.n_stages:
-            raise AssertionError(f"{name} launched {n} times on the slice, "
-                                 f"expected >= {10 * 2 * s.n_stages}")
-    return launches
+    log(f"slice {name} launches {launches} {counts[name]}")
+    if not np.isfinite(row).all() or not rel.max() < rtol:
+        raise AssertionError(f"{name} residual row off the golden: {row}")
+    need = 10 * 2 * s.n_stages * (2 if name == "overint" else 1)
+    if launches < need:
+        raise AssertionError(f"volume_tdisf launched {launches} times on "
+                             f"the {name} slice, expected >= {need}")
+    return rate
 
 
 def main():
     card = phase_device()
     sys.path.insert(0, ROOT)
     phase_build()
-    from hifiles_tpu_torch.solver.volume import volume_tdisf
-    rec = phase_kernel(U=125, E=4096)
-    phase_slice_small()
-    launches = phase_slice(card, [volume_tdisf])
+    recs = phase_kernel(E=4096)
+    counts = {}
+    phase_small(counts)
+    for name in SLICES:
+        phase_slice(card, name, counts)
     if "jax" in sys.modules or any(m.startswith("jax.") for m in sys.modules):
         raise AssertionError("chip_smoke imported JAX")
     import torch
-    kernels = [dict(
-        name="volume_tdisf", route="cuda",
-        source="hifiles_tpu_torch/csrc/volume_tdisf.cu",
-        replaces="hifiles_tpu/solver/pallas_kernels.py:101",
-        launches=launches["volume_tdisf"], **rec)]
+    kernels = []
+    for v in VARIANTS:
+        n = counts[v["path"]].get(v["key"], 0)
+        if n == 0:
+            raise AssertionError(f"volume_tdisf[{v['name']}] ({v['key']}) "
+                                 f"not launched on the {v['path']} run")
+        kernels.append(dict(
+            name=f"volume_tdisf[{v['name']}]", route="cuda",
+            source="hifiles_tpu_torch/csrc/volume_tdisf.cu",
+            replaces="hifiles_tpu/solver/pallas_kernels.py:101",
+            launches=n, **recs[v["name"]]))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

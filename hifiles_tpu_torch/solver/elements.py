@@ -4,8 +4,9 @@ Copied from hifiles_tpu/solver/elements.py (lines 27-447 and the corner
 helpers at 618-636) with only the imports rewired: hifiles_tpu.solver
 imports JAX at package level, so this numpy host code is carried here.
 The mixed-mesh tables (MixedMeshTables, build_mixed_blocks) are not
-copied yet.  Over-integration geometry needs the JAX package's
-stabilization module and raises here.
+copied yet.  The over-integration operators come from
+hifiles_tpu.ops.stabilization, whose JAX imports sit inside its shock
+capture factories.
 
 This replaces the reference's eles/inters pointer machinery
 (ref:src/eles.cpp:4015-4393 set_transforms, ref:src/int_inters.cpp:67-121
@@ -29,6 +30,7 @@ from hifiles_tpu import HEX, PRISM, QUAD, TET, TRI
 from hifiles_tpu.mesh.core import FaceConnectivity, MeshData
 from hifiles_tpu.mesh.shape import shape_basis, shape_dbasis
 from hifiles_tpu.ops.operators import ElementOps
+from hifiles_tpu.ops.stabilization import build_over_int_ops
 
 
 def _adjugate(J: np.ndarray) -> np.ndarray:
@@ -431,9 +433,11 @@ def build_element_block(mesh: MeshData, conn: FaceConnectivity,
     # --- over-integration geometry (ref:src/eles.cpp:4151-4213)
     jginv_over = opp_over = over_filter = None
     if over_int_order is not None:
-        raise NotImplementedError(
-            "over-integration geometry (hifiles_tpu.ops.stabilization "
-            "build_over_int_ops) is not ported yet")
+        loc_over, opp_over, over_filter = build_over_int_ops(
+            ops, over_int_order)
+        db_o = shape_dbasis(ct, loc_over, n_spts)
+        J_o = np.einsum("csj,esi->ecij", db_o, spts)
+        jginv_over = _adjugate(J_o)
 
     return ElementBlock(
         ops=ops, n_eles=E,

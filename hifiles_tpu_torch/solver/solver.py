@@ -1,10 +1,10 @@
 """Solver orchestration: config + mesh -> time stepping on a torch device.
 
 Port of hifiles_tpu/solver/solver.py, simple path: one hex block, periodic
-(interior faces only), the features of the SoA residual port, fixed dt.
-Setup runs once on the host in numpy; the time loop is a Python loop of RK
-steps on the elements-minor (U, F, E) state, which is transposed once here
-and not per chunk.
+(interior faces only), the features of the SoA residual port, the SVV
+pre-step filter and shock capture, fixed dt.  Setup runs once on the host
+in numpy; the time loop is a Python loop of RK steps on the elements-minor
+(U, F, E) state, which is transposed once here and not per chunk.
 """
 
 from __future__ import annotations
@@ -13,12 +13,15 @@ import numpy as np
 import torch
 
 from hifiles_tpu import HEX
-from hifiles_tpu.config.params import CYCLIC, RunInput
+from hifiles_tpu.config.params import (ADIABAT_WALL, CYCLIC, ISOTHERM_WALL,
+                                       RunInput)
 from hifiles_tpu.mesh.core import MeshData, build_faces
+from hifiles_tpu.ops.les_filter import build_les_filter
 from hifiles_tpu.ops.operators import build_tensor_ops
 
 from ..backend import select_device
 from ..convert import state_from_numpy, ufe_to_euf
+from ..ops.stabilization import make_shock_capture_soa
 from .elements import build_element_block
 from .ics import analytic_solution, apply_patch, initial_condition
 from .residual import ResidualConfig
@@ -33,7 +36,6 @@ def _unsupported(p: RunInput, mesh: MeshData) -> list:
     if not np.all(mesh.ctype == HEX):
         missing.append("element types other than hex")
     for flag, name in ((p.wall_model, "wall models"),
-                       (p.shock_cap, "shock capture"),
                        (p.forcing, "body forcing"),
                        (p.average_fields, "time averages")):
         if flag:
@@ -75,8 +77,10 @@ class Solver:
         self.ops = build_tensor_ops(
             HEX, run_input.order, run_input.upts_type_hexa,
             run_input.vcjh_scheme_hexa, run_input.eta_hexa)
-        self.block = build_element_block(mesh, self.conn, self.ops,
-                                         delta_cyclic=delta_cyclic)
+        self.block = build_element_block(
+            mesh, self.conn, self.ops, delta_cyclic=delta_cyclic,
+            over_int_order=(run_input.over_int_order if run_input.over_int
+                            else None))
 
         nan0 = lambda x, v: v if np.isnan(x) else x
         self.rcfg = ResidualConfig(
@@ -88,11 +92,50 @@ class Solver:
             c_sth=nan0(run_input.c_sth, 0.0),
             fix_vis=run_input.fix_vis, ldg_tau=run_input.ldg_tau,
             ldg_beta=run_input.ldg_beta, n_fields=self.n_fields,
+            prandtl_t=run_input.prandtl_t, rans=bool(run_input.RANS),
             over_int=bool(run_input.over_int), les=bool(run_input.LES),
-            rans=bool(run_input.RANS))
+            sgs_model=run_input.SGS_model, C_s=run_input.C_s,
+            filter_ratio=run_input.filter_ratio,
+            filter_type=run_input.filter_type, kappa=run_input.Kappa,
+            c_v1=run_input.c_v1, c_v2=run_input.c_v2, c_v3=run_input.c_v3,
+            c_b1=run_input.c_b1, c_b2=run_input.c_b2, c_w2=run_input.c_w2,
+            c_w3=run_input.c_w3, omega=run_input.omega)
+
+        # wall distance for SA / wall-damped Smagorinsky (solver.py:116-129;
+        # ref:src/geometry.cpp:708-894); 1e10 everywhere without walls
+        if run_input.RANS or (run_input.LES and run_input.SGS_model == 0):
+            wall_slots = [
+                self.block.bdy_slot[f][self.block.bdy_mask[f] > 0]
+                for f, bcid in enumerate(self.block.bdy_bcid)
+                if bc_flags.get(int(bcid), -1) in (ISOTHERM_WALL,
+                                                   ADIABAT_WALL)]
+            wall_pts = (self.block.pos_fpts[np.concatenate(wall_slots)]
+                        if wall_slots else np.empty((0, self.n_dims)))
+            self.block.compute_wall_distance(wall_pts)
+
         self.residual_soa = make_residual_soa(self.block, self.rcfg,
                                               self.device, dtype)
-        self._step = make_step_fn(self.residual_soa, run_input.adv_type)
+
+        # SVV model: replace the solution with its filtered version once per
+        # step (solver.py:180-192; ref:src/eles.cpp:2087-2089)
+        self._pre_step = None
+        if run_input.LES and run_input.SGS_model == 3:
+            svv = torch.as_tensor(
+                build_les_filter(self.ops, run_input.filter_type,
+                                 run_input.filter_ratio),
+                dtype=dtype, device=self.device)
+            self._pre_step = lambda u: (svv @ u.reshape(u.shape[0], -1)
+                                        ).view(u.shape)
+
+        # shock capture after every RK stage (solver.py:197-213)
+        post_stage = None
+        if run_input.shock_cap:
+            post_stage = make_shock_capture_soa(
+                self.ops, run_input.s0, run_input.expf_fac,
+                run_input.expf_order, run_input.expf_cutoff,
+                run_input.shock_det_field, self.n_dims, self.device, dtype)
+        self._step = make_step_fn(self.residual_soa, run_input.adv_type,
+                                  post_stage=post_stage)
         self.n_stages = N_STAGES[run_input.adv_type]
 
         # initial condition at solution points (ref:src/solver.cpp:321-340)
@@ -119,6 +162,8 @@ class Solver:
         dt) and return the (U, F, E) state tensor."""
         dt = float(self.p.dt if dt is None else dt)
         for _ in range(n_steps):
+            if self._pre_step is not None:
+                self.u_soa = self._pre_step(self.u_soa)
             self.u_soa, self.reg_soa = self._step(self.u_soa, self.reg_soa,
                                                   dt)
         self.time += dt * n_steps

@@ -41,17 +41,21 @@ RK414_B = np.array([
 N_STAGES = {0: 1, 1: 4, 2: 4, 3: 5, 4: 14}
 
 
-def make_step_fn(residual_fn, adv_type: int):
+def make_step_fn(residual_fn, adv_type: int, post_stage=None):
     """Build step(u, reg, dt) -> (u, reg) advancing one full time step.
 
     ``residual_fn(u)`` returns -div_tconf/detjac.  The step updates ``u``
     (and, for the 2N schemes, ``reg``) IN PLACE and returns them: the JAX
     step builds new arrays, here the state and register are each held
     once.  ``reg`` may be None for the first step of a 2N scheme.
-    Coefficients stay Python floats, so an f32 state stays f32."""
+    ``post_stage(u)``, e.g. shock capture, runs after every stage update and
+    must update ``u`` in place.  Coefficients stay Python floats, so an f32
+    state stays f32."""
+    ps = post_stage if post_stage is not None else (lambda u: u)
+
     if adv_type == 0:
         def step(u, reg, dt):
-            u.add_(residual_fn(u), alpha=dt)
+            ps(u.add_(residual_fn(u), alpha=dt))
             return u, reg
         return step
 
@@ -59,20 +63,20 @@ def make_step_fn(residual_fn, adv_type: int):
         def step(u, reg, dt):
             u0 = u.clone()
             for _ in range(3):
-                u.add_(residual_fn(u), alpha=dt / 3.0)
+                ps(u.add_(residual_fn(u), alpha=dt / 3.0))
             k = residual_fn(u)
-            u.mul_(0.75).add_(u0, alpha=0.25).add_(k, alpha=dt / 4.0)
+            ps(u.mul_(0.75).add_(u0, alpha=0.25).add_(k, alpha=dt / 4.0))
             return u, reg
         return step
 
     if adv_type == 2:  # SSP-RK34 (ref:src/eles.cpp:1172-1220)
         def step(u, reg, dt):
             u0 = u.clone()
-            u.add_(residual_fn(u), alpha=dt / 2.0)
-            u.add_(residual_fn(u), alpha=dt / 2.0)
+            ps(u.add_(residual_fn(u), alpha=dt / 2.0))
+            ps(u.add_(residual_fn(u), alpha=dt / 2.0))
             k = residual_fn(u)
-            u.div_(3.0).add_(u0, alpha=2.0 / 3.0).add_(k, alpha=dt / 6.0)
-            u.add_(residual_fn(u), alpha=dt / 2.0)
+            ps(u.div_(3.0).add_(u0, alpha=2.0 / 3.0).add_(k, alpha=dt / 6.0))
+            ps(u.add_(residual_fn(u), alpha=dt / 2.0))
             return u, reg
         return step
 
@@ -87,7 +91,7 @@ def make_step_fn(residual_fn, adv_type: int):
             for a, b in zip(A, Bc):
                 k = residual_fn(u)
                 r.mul_(a).add_(k, alpha=dt)
-                u.add_(r, alpha=b)
+                ps(u.add_(r, alpha=b))
             return u, r
         return step
 

@@ -2,128 +2,368 @@
 
 ``volume_tdisf`` is the port of the JAX package's one Pallas kernel,
 hifiles_tpu/solver/pallas_kernels.py::volume_tdisf_fm, written by hand in
-CUDA C++ (csrc/volume_tdisf.cu).  ``volume_tdisf_ref`` is the same algebra
-in torch ops: the CPU path and the reference the kernel is held against.
+CUDA C++ (csrc/volume_tdisf.cu) and extended to the volume stage of every
+configuration the port runs (residual_soa.py:1094-1139 of the JAX
+package): SA-RANS (F = 6), Sutherland viscosity, the eddy-viscosity SGS
+flux (Smagorinsky or WALE), an added physical flux (the similarity SGS
+flux), and the inviscid part on or off (the over-integration path launches
+it once at the cubature points, inviscid only, and once at the solution
+points, viscous only).  ``volume_tdisf_ref`` is the same algebra in torch
+ops, composed from the plane functions below: the CPU path and the
+reference the kernel is held against.
 
 Layouts (elements minor, as the residual's state):
-  u (U, F, E), grad (d, U, F, E), jg (d, d, U, E') with E' = E or 1
+  u (U, F, E), grad (d, U, F, E), jg (d, d, U, E'), delta and wdist
+  (U, E'), extra (d, U, F, E), with E' = E or 1 (one broadcast column)
   -> tdisf (d, U, F, E),  tdisf[l][:, i] = sum_m jg[l][m] * f_i,m.
-Coverage is the Pallas kernel's: d = 3, F = 5, constant viscosity
-(fix_vis = 1), viscous or not.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import dataclasses
 
 import torch
 
 from .. import backend
 
-D, F = 3, 5
+D = 3
+SGS_NONE, SGS_SMAGORINSKY, SGS_WALE = -1, 0, 1
 
 
-def volume_tdisf_ref(u, grad, jg, *, gamma, mu, prandtl, viscous):
-    """Plain torch version of the volume kernel (same algebra, same
-    layouts).  ``grad`` is unused when not ``viscous``."""
-    rho, mx, my, mz, en = u.unbind(1)
+@dataclasses.dataclass(frozen=True)
+class VolumeParams:
+    """What the volume stage computes, fixed for a residual.  ``mu`` is
+    mu_inf; ``fix_vis`` 0 is Sutherland's law; ``sgs`` is SGS_NONE,
+    SGS_SMAGORINSKY or SGS_WALE; F = 6 (the SA field) turns the SA terms
+    on."""
+    gamma: float = 1.4
+    prandtl: float = 0.72
+    mu: float = 0.0
+    viscous: bool = False
+    inviscid: bool = True
+    fix_vis: int = 1
+    rt_inf: float = 1.0
+    c_sth: float = 0.0
+    prandtl_t: float = 0.9
+    c_v1: float = 7.1
+    omega: float = 2.0 / 3.0
+    sgs: int = SGS_NONE
+    C_s: float = 0.0
+    kappa: float = 0.41
+
+
+# ----------------------------------------------------------------------
+# plane physics (fields as lists of (..., E) planes), ported from
+# hifiles_tpu/solver/residual_soa.py
+# ----------------------------------------------------------------------
+
+def softplus(x):
+    """log(1 + exp(x)) without overflow, as jax.nn.softplus computes it
+    (torch.nn.functional.softplus returns x above its threshold 20)."""
+    return torch.logaddexp(x, x.new_zeros(()))
+
+
+def inv_flux_p(u, d, gamma):
+    """Inviscid flux planes [d][F] (residual_soa.py:956-980 of the JAX
+    package), the SA field advecting passively."""
+    rho = u[0]
     inv_rho = 1.0 / rho
-    m = (mx, my, mz)
-    v = [mi * inv_rho for mi in m]
-    q2 = v[0] * v[0] + v[1] * v[1] + v[2] * v[2]
-    p = (gamma - 1.0) * (en - 0.5 * rho * q2)
-    hp = en + p
-    # f[i][dd]: flux of field i along dimension dd
-    f = [[m[dd] for dd in range(D)]]
-    f += [[m[i] * v[dd] for dd in range(D)] for i in range(D)]
-    f.append([hp * v[dd] for dd in range(D)])
-    for i in range(D):
-        f[1 + i][i] = f[1 + i][i] + p
-    if viscous:
-        g = [gl.unbind(1) for gl in grad.unbind(0)]      # g[dd][i]
-        dv = [[(g[dd][1 + i] - v[i] * g[dd][0]) * inv_rho
-               for dd in range(D)] for i in range(D)]
-        inte = en * inv_rho - 0.5 * q2
-        dint = [(g[dd][4] - (0.5 * q2 + inte) * g[dd][0]) * inv_rho
-                - (v[0] * dv[0][dd] + v[1] * dv[1][dd] + v[2] * dv[2][dd])
-                for dd in range(D)]
-        div = dv[0][0] + dv[1][1] + dv[2][2]
-        tau = [[mu * (dv[i][dd] + dv[dd][i]) for dd in range(D)]
-               for i in range(D)]
-        for i in range(D):
-            tau[i][i] = tau[i][i] - 2.0 / 3.0 * mu * div
+    v = [u[1 + m] * inv_rho for m in range(d)]
+    q2 = sum(vi * vi for vi in v)
+    p = (gamma - 1.0) * (u[d + 1] - 0.5 * rho * q2)
+    hp = u[d + 1] + p
+    out = []
+    for mm in range(d):
+        rows = [u[1 + mm]]
+        for i in range(d):
+            r = u[1 + i] * v[mm]
+            if i == mm:
+                r = r + p
+            rows.append(r)
+        rows.append(hp * v[mm])
+        for k in range(d + 2, len(u)):    # SA advection
+            rows.append(u[k] * v[mm])
+        out.append(rows)
+    return out
+
+
+def visc_flux_p(u, gr, d, *, gamma, prandtl, mu_inf, rt_inf, c_sth, fix_vis,
+                rans=False, prandtl_t=0.9, c_v1=7.1, omega=2.0 / 3.0):
+    """Viscous flux planes: u F-list, gr [d][F]-list -> [d][F]-list
+    (ref:src/flux.cpp:127-325; SA diffusion ref:src/flux.cpp:225-241);
+    fix_vis 0 is Sutherland's law."""
+    rho = u[0]
+    inv_rho = 1.0 / rho
+    v = [u[1 + m] * inv_rho for m in range(d)]
+    q2 = sum(vi * vi for vi in v)
+    inte = u[d + 1] * inv_rho - 0.5 * q2
+    if fix_vis:
+        mu = mu_inf
+    else:
+        rt_ratio = (gamma - 1.0) * inte / rt_inf
+        mu = mu_inf * rt_ratio**1.5 * (1.0 + c_sth) / (rt_ratio + c_sth)
+    if rans:
+        nu_tilde_c = u[d + 2]
+        chi = nu_tilde_c / mu
+        f_v1 = chi**3 / (chi**3 + c_v1**3)
+        mu_t = torch.where(nu_tilde_c >= 0.0, nu_tilde_c * f_v1,
+                           torch.zeros_like(nu_tilde_c))
+        mu_tot = mu + mu_t
+        kth = (mu / prandtl + mu_t / prandtl_t) * gamma
+    else:
+        mu_tot = mu
         kth = mu * gamma / prandtl
-        for dd in range(D):
-            for i in range(D):
-                f[1 + i][dd] = f[1 + i][dd] - tau[i][dd]
-            f[4][dd] = f[4][dd] - (v[0] * tau[0][dd] + v[1] * tau[1][dd]
-                                   + v[2] * tau[2][dd] + kth * dint[dd])
+    dv = [[(gr[l][1 + i] - v[i] * gr[l][0]) * inv_rho for l in range(d)]
+          for i in range(d)]
+    dint = [(gr[l][d + 1] - (0.5 * q2 + inte) * gr[l][0]) * inv_rho
+            - sum(v[i] * dv[i][l] for i in range(d)) for l in range(d)]
+    div = sum(dv[i][i] for i in range(d))
+    tau = [[mu_tot * (dv[i][l] + dv[l][i]) for l in range(d)]
+           for i in range(d)]
+    for i in range(d):
+        tau[i][i] = tau[i][i] - 2.0 / 3.0 * mu_tot * div
+    out = []
+    for mm in range(d):
+        rows = [torch.zeros_like(rho)]
+        for i in range(d):
+            rows.append(-tau[i][mm])
+        rows.append(-(sum(v[i] * tau[i][mm] for i in range(d))
+                      + kth * dint[mm]))
+        out.append(rows)
+    if rans:
+        nu_tilde = nu_tilde_c * inv_rho
+        psi = torch.where(chi <= 10.0, 0.05 * softplus(20.0 * chi), chi)
+        coef = (1.0 / omega) * mu * (1.0 + psi)
+        for mm in range(d):
+            dnu = (gr[mm][d + 2] - gr[mm][0] * nu_tilde) * inv_rho
+            out[mm].append(-coef * dnu)
+    return out
+
+
+def sgs_flux_p(u, gr, delta, wdist, d, *, sgs_model, C_s, gamma, prandtl_t,
+               kappa):
+    """Eddy-viscosity SGS flux planes (ref:src/eles.cpp:2470-2612):
+    sgs_model 0 is Smagorinsky with wall limiting, any other WALE.
+    ``delta`` already includes the filter-ratio factor.  Returns [d][F],
+    added to the viscous flux."""
+    F = len(u)
+    rho = u[0]
+    inv_rho = 1.0 / rho
+    v = [u[1 + m] * inv_rho for m in range(d)]
+    q2 = sum(vi * vi for vi in v)
+    inte = u[d + 1] * inv_rho - 0.5 * q2
+    dv = [[(gr[l][1 + i] - v[i] * gr[l][0]) * inv_rho for l in range(d)]
+          for i in range(d)]
+    dke = [0.5 * q2 * gr[l][0]
+           + rho * sum(v[i] * dv[i][l] for i in range(d)) for l in range(d)]
+    de = [(gr[l][d + 1] - dke[l] - gr[l][0] * inte) * inv_rho
+          for l in range(d)]
+    S = [[0.5 * (dv[i][l] + dv[l][i]) for l in range(d)] for i in range(d)]
+
+    if sgs_model == 0:
+        # Smagorinsky with wall limiting (ref:src/eles.cpp:2470-2546)
+        Smod = torch.sqrt(2.0 * sum(S[i][l] * S[i][l]
+                                    for i in range(d) for l in range(d)))
+        lim = torch.minimum(wdist * wdist * kappa**2,
+                            C_s**2 * delta * delta)
+        mu_t = rho * lim * Smod
+    else:
+        # WALE (ref:src/eles.cpp:2548-2592)
+        eps = 1e-12
+        g2 = [[sum(dv[i][k] * dv[k][l] for k in range(d)) for l in range(d)]
+              for i in range(d)]
+        trace3 = sum(g2[i][i] for i in range(d)) / 3.0
+        Sq = [[0.5 * (g2[i][l] + g2[l][i]) - (trace3 if i == l else 0.0)
+               for l in range(d)] for i in range(d)]
+        num = sum(Sq[i][l] * Sq[i][l] for i in range(d) for l in range(d))
+        den = sum(S[i][l] * S[i][l] for i in range(d) for l in range(d))
+        den = den**2.5 + num**1.25
+        mu_t = rho * C_s**2 * delta * delta * num**1.5 / (den + eps)
+
+    trS3 = sum(S[i][i] for i in range(d)) / 3.0
+    mom = [[-2.0 * mu_t * (S[i][l] - (trS3 if i == l else 0.0))
+            for l in range(d)] for i in range(d)]
+    coef = gamma * mu_t / prandtl_t
+    out = []
+    zero = torch.zeros_like(rho)
+    for mm in range(d):
+        rows = [zero]
+        for i in range(d):
+            rows.append(mom[i][mm])
+        rows.append(-coef * de[mm]
+                    + sum(v[k] * mom[k][mm] for k in range(d)))
+        while len(rows) < F:
+            rows.append(zero)
+        out.append(rows)
+    return out
+
+
+def visc_kwargs(prm: VolumeParams, n_fields: int) -> dict:
+    """visc_flux_p keywords of a VolumeParams."""
+    return dict(gamma=prm.gamma, prandtl=prm.prandtl, mu_inf=prm.mu,
+                rt_inf=prm.rt_inf, c_sth=prm.c_sth, fix_vis=prm.fix_vis,
+                rans=n_fields == D + 3, prandtl_t=prm.prandtl_t,
+                c_v1=prm.c_v1, omega=prm.omega)
+
+
+def sgs_kwargs(prm: VolumeParams) -> dict:
+    """sgs_flux_p keywords of a VolumeParams with an SGS model."""
+    return dict(sgs_model=prm.sgs, C_s=prm.C_s, gamma=prm.gamma,
+                prandtl_t=prm.prandtl_t, kappa=prm.kappa)
+
+
+# ----------------------------------------------------------------------
+# the volume stage
+# ----------------------------------------------------------------------
+
+def volume_tdisf_ref(u, grad, jg, prm: VolumeParams, delta=None, wdist=None,
+                     extra=None):
+    """Plain torch version of the volume kernel (same algebra, same
+    layouts).  ``grad`` is read only when ``prm.viscous``, ``delta`` and
+    ``wdist`` only with an SGS model; ``extra`` is added to the physical
+    flux before the transform."""
+    F = u.shape[1]
+    up = list(u.unbind(1))
+    zero = torch.zeros_like(up[0])
+    fl = (inv_flux_p(up, D, prm.gamma) if prm.inviscid
+          else [[zero] * F for _ in range(D)])
+    if prm.viscous:
+        gr = [list(g.unbind(1)) for g in grad.unbind(0)]
+        fv = visc_flux_p(up, gr, D, **visc_kwargs(prm, F))
+        if prm.sgs != SGS_NONE:
+            fs = sgs_flux_p(up, gr, delta, wdist, D, **sgs_kwargs(prm))
+            fv = [[a + b for a, b in zip(fv[m], fs[m])] for m in range(D)]
+        fl = [[a + b for a, b in zip(fl[m], fv[m])] for m in range(D)]
+    if extra is not None:
+        fl = [[a + b for a, b in zip(fl[m], extra[m].unbind(1))]
+              for m in range(D)]
     return torch.stack([
-        torch.stack([jg[l, 0] * f[i][0] + jg[l, 1] * f[i][1]
-                     + jg[l, 2] * f[i][2] for i in range(F)], dim=1)
+        torch.stack([jg[l, 0] * fl[0][i] + jg[l, 1] * fl[1][i]
+                     + jg[l, 2] * fl[2][i] for i in range(F)], dim=1)
         for l in range(D)])
 
 
-def _check(u, grad, jg, viscous):
-    if u.dim() != 3 or u.shape[1] != F:
-        raise ValueError(f"u must be (U, {F}, E), got {tuple(u.shape)}")
-    U, _, E = u.shape
-    if (jg.dim() != 4 or jg.shape[:3] != (D, D, U)
-            or jg.shape[3] not in (1, E)):
-        raise ValueError(f"jg must be ({D}, {D}, {U}, {E} or 1), "
-                         f"got {tuple(jg.shape)}")
-    ts = [u, jg] + ([grad] if viscous else [])
-    if viscous and tuple(grad.shape) != (D, U, F, E):
-        raise ValueError(f"grad must be ({D}, {U}, {F}, {E}), "
-                         f"got {tuple(grad.shape)}")
+def _check(u, grad, jg, prm, delta, wdist, extra):
+    if u.dim() != 3 or u.shape[1] not in (D + 2, D + 3):
+        raise ValueError(f"u must be (U, {D + 2} or {D + 3}, E), "
+                         f"got {tuple(u.shape)}")
+    U, F, E = u.shape
+
+    def plane(name, t, shape):
+        if t.dim() != len(shape) or t.shape[:-1] != shape[:-1] \
+                or t.shape[-1] not in (1, E):
+            raise ValueError(f"{name} must be {shape[:-1] + (E,)} or with "
+                             f"a last axis of 1, got {tuple(t.shape)}")
+
+    plane("jg", jg, (D, D, U, E))
+    ts = [u, jg]
+    if prm.viscous:
+        if grad is None or tuple(grad.shape) != (D, U, F, E):
+            raise ValueError(f"grad must be ({D}, {U}, {F}, {E}), got "
+                             f"{None if grad is None else tuple(grad.shape)}")
+        ts.append(grad)
+        if prm.sgs != SGS_NONE:
+            if delta is None or wdist is None:
+                raise ValueError("an SGS model needs delta and wdist")
+            plane("delta", delta, (U, E))
+            plane("wdist", wdist, (U, E))
+            ts += [delta, wdist]
+    if prm.sgs not in (SGS_NONE, SGS_SMAGORINSKY, SGS_WALE):
+        raise ValueError(f"unknown sgs {prm.sgs}")
+    if extra is not None:
+        if tuple(extra.shape) != (D, U, F, E):
+            raise ValueError(f"extra must be ({D}, {U}, {F}, {E}), "
+                             f"got {tuple(extra.shape)}")
+        ts.append(extra)
     for t in ts:
         if t.device != u.device or t.dtype != u.dtype:
-            raise ValueError("u, grad and jg must share device and dtype")
+            raise ValueError("volume_tdisf operands must share device and "
+                             "dtype")
         if not t.is_contiguous():
             raise ValueError("volume_tdisf takes contiguous tensors")
     if u.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"unsupported dtype {u.dtype}")
 
 
-# (u, grad, jg, out, n_upts, n_eles, jg_ele_stride, gamma, mu, prandtl,
-#  viscous, device, stream) -> cudaError_t of the launch
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3 \
-    + [ctypes.c_double] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+class _Args(ctypes.Structure):
+    """HftVolumeArgs of csrc/volume_tdisf.cu: shapes, strides and scalar
+    parameters of one launch."""
+    _fields_ = [(n, ctypes.c_int64) for n in (
+        "n_upts", "n_eles", "n_fields", "jg_stride", "delta_stride",
+        "wdist_stride")] + [(n, ctypes.c_double) for n in (
+            "gamma", "prandtl", "prandtl_t", "mu_inf", "rt_inf", "c_sth",
+            "c_v1", "omega", "C_s", "kappa")] + [(n, ctypes.c_int32) for n in (
+                "viscous", "inviscid", "sutherland", "sgs")]
 
 
 def _entry(dtype):
     name = ("hft_volume_tdisf_f32" if dtype == torch.float32
             else "hft_volume_tdisf_f64")
     fn = getattr(backend.kernel_library(), name)
-    fn.argtypes = _ARGTYPES
+    # (u, grad, jg, delta, wdist, extra, out, args, device, stream)
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.POINTER(_Args),
+                                           ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def volume_tdisf(u, grad, jg, *, gamma, mu, prandtl, viscous):
+def variant(prm: VolumeParams, n_fields: int, has_extra: bool) -> str:
+    """Name of what one launch computes, e.g. "F6+inviscid+viscous" or
+    "F5+viscous+wale+added-flux"."""
+    parts = [f"F{n_fields}"]
+    if prm.inviscid:
+        parts.append("inviscid")
+    if prm.viscous:
+        parts.append("viscous" if prm.fix_vis else "sutherland")
+        if prm.sgs != SGS_NONE:
+            parts.append("smagorinsky" if prm.sgs == SGS_SMAGORINSKY
+                         else "wale")
+    if has_extra:
+        parts.append("added-flux")
+    return "+".join(parts)
+
+
+def volume_tdisf(u, grad, jg, prm: VolumeParams, delta=None, wdist=None,
+                 extra=None):
     """Volume stage: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors.  ``grad`` may be None when not ``viscous``.
-    ``volume_tdisf.launches`` counts the kernel launches (CPU calls do not
-    count)."""
-    _check(u, grad, jg, viscous)
+    for CPU tensors (arguments as volume_tdisf_ref).
+    ``volume_tdisf.launches`` counts the kernel launches and
+    ``volume_tdisf.by_variant`` splits them by ``variant`` (CPU calls do
+    not count)."""
+    _check(u, grad, jg, prm, delta, wdist, extra)
     if u.device.type == "cpu":
-        return volume_tdisf_ref(u, grad, jg, gamma=gamma, mu=mu,
-                                prandtl=prandtl, viscous=viscous)
+        return volume_tdisf_ref(u, grad, jg, prm, delta, wdist, extra)
     if u.device.type != "cuda":
         raise ValueError(f"volume_tdisf: unsupported device {u.device}")
-    U, _, E = u.shape
+    U, F, E = u.shape
+    sgs = prm.sgs if prm.viscous else SGS_NONE
+    stride = lambda t: 1 if t is not None and t.shape[-1] == E and E > 1 \
+        else 0
+    ptr = lambda t: None if t is None else t.data_ptr()
+    args = _Args(
+        n_upts=U, n_eles=E, n_fields=F, jg_stride=stride(jg),
+        delta_stride=stride(delta), wdist_stride=stride(wdist),
+        gamma=prm.gamma, prandtl=prm.prandtl, prandtl_t=prm.prandtl_t,
+        mu_inf=prm.mu, rt_inf=prm.rt_inf, c_sth=prm.c_sth, c_v1=prm.c_v1,
+        omega=prm.omega, C_s=prm.C_s, kappa=prm.kappa,
+        viscous=int(bool(prm.viscous)), inviscid=int(bool(prm.inviscid)),
+        sutherland=int(not prm.fix_vis), sgs=sgs)
     out = torch.empty((D, U, F, E), device=u.device, dtype=u.dtype)
     stream = torch.cuda.current_stream(u.device).cuda_stream
     rc = _entry(u.dtype)(
-        u.data_ptr(), grad.data_ptr() if viscous else None, jg.data_ptr(),
-        out.data_ptr(), U, E, 1 if jg.shape[3] == E and E > 1 else 0,
-        float(gamma), float(mu), float(prandtl), int(bool(viscous)),
-        u.device.index, stream)
+        ptr(u), ptr(grad) if prm.viscous else None, ptr(jg),
+        ptr(delta) if sgs != SGS_NONE else None,
+        ptr(wdist) if sgs != SGS_NONE else None, ptr(extra), ptr(out),
+        ctypes.byref(args), u.device.index, stream)
     if rc != 0:
         raise RuntimeError(f"volume_tdisf kernel launch failed: CUDA error "
                            f"{rc}")
     volume_tdisf.launches += 1
+    volume_tdisf.by_variant[variant(prm, F, extra is not None)] += 1
     return out
 
 
 volume_tdisf.launches = 0
+volume_tdisf.by_variant = collections.Counter()

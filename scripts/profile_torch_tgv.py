@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Where the time goes in the port's `plain` case on one GPU.
+"""Where the time goes in one of the port's bench cases on one GPU.
 
-  python3 scripts/profile_torch_tgv.py [--steps N] [--out DIR]
+  python3 scripts/profile_torch_tgv.py [--config NAME] [--steps N] [--out DIR]
 
-Runs the TGV p=4 16^3 viscous-NS case of bench.py through hifiles_tpu_torch
-in f32, warms up 2 steps, then traces N steps (default 2) with
+Runs a TGV p=4 16^3 case of bench.py (--config plain, smag, overint, rans
+or shock; default plain) through hifiles_tpu_torch in f32, warms up 2 steps, then traces N steps (default 2) with
 torch.profiler.  Prints the device time per kernel class (GEMM, the hand
 volume kernel, gathers/stores, other elementwise), the device busy share of
 the traced wall time, and the launches per RK stage; writes the top kernels
@@ -34,6 +34,7 @@ def kernel_class(name):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", default="plain")
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--out", default=os.path.join(ROOT, "profile_out"))
     args = ap.parse_args()
@@ -42,8 +43,8 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_tgv: CUDA is not available")
     sys.path.insert(0, ROOT)
-    from chip_smoke import tgv_plain_input
-    from hifiles_tpu_torch import Solver, periodic_hex_mesh
+    from chip_smoke import SLICES, make_solver, tgv_input
+    from hifiles_tpu_torch import periodic_hex_mesh
     from torch.profiler import ProfilerActivity, profile
 
     card = subprocess.run(
@@ -51,9 +52,11 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
     print(card)
-    p = tgv_plain_input(order=4)
-    s = Solver(p, periodic_hex_mesh(16, 16, 16), device="cuda",
-               dtype=torch.float32)
+    if args.config not in SLICES:
+        raise SystemExit(f"profile_torch_tgv: --config one of {SLICES}")
+    p = tgv_input(order=4, config=args.config)
+    s = make_solver(p, periodic_hex_mesh(16, 16, 16), args.config, "cuda",
+                    torch.float32)
     s.run(2, dt=p.dt)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -77,7 +80,7 @@ def main():
         rows.append((dev_us, ev.count, ev.key))
     busy = sum(by_class.values())
     stages = args.steps * s.n_stages
-    print(f"traced {args.steps} steps ({stages} RK stages): wall "
+    print(f"{args.config}: traced {args.steps} steps ({stages} RK stages): wall "
           f"{wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
           f"({100 * busy / wall_us:.1f}% busy, "
           f"{100 * (1 - busy / wall_us):.1f}% idle)")
@@ -87,13 +90,13 @@ def main():
         print(f"  {cls:28s} {us / stages:9.1f} us/stage "
               f"{100 * us / busy:5.1f}% of device time")
     os.makedirs(args.out, exist_ok=True)
-    top = os.path.join(args.out, "profile_plain_kernels.txt")
+    top = os.path.join(args.out, f"profile_{args.config}_kernels.txt")
     with open(top, "w") as f:
         f.write(f"{card}\n")
         for dev_us, count, key in sorted(rows, reverse=True):
             f.write(f"{dev_us:12.1f} us {count:6d}x  {key}\n")
     prof.export_chrome_trace(os.path.join(args.out,
-                                          "profile_plain_trace.json"))
+                                          f"profile_{args.config}_trace.json"))
     print(f"kernel table: {top}")
 
 

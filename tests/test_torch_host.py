@@ -58,6 +58,24 @@ def test_element_block_and_ic_identical(n, order):
     assert np.array_equal(u_j, u_t)
 
 
+def test_over_int_block_identical():
+    """The over-integration geometry (cubature adjugates, interpolation and
+    projection operators) of the port's block equals the JAX package's."""
+    p = tgv_input()
+    mesh = periodic_hex_mesh(3, 3, 3)
+    dc = np.array([p.dx_cyclic, p.dy_cyclic, p.dz_cyclic])
+    conn = build_faces(mesh, {0: CYCLIC}, dc)
+    ops = build_tensor_ops(HEX, 3, p.upts_type_hexa, p.vcjh_scheme_hexa,
+                           p.eta_hexa)
+    kw = dict(delta_cyclic=dc, over_int_order=5)
+    bj = jax_elements.build_element_block(mesh, conn, ops, **kw)
+    bt = port_elements.build_element_block(mesh, conn, ops, **kw)
+    for name in ("jginv_over", "opp_over", "over_filter"):
+        a, b = getattr(bj, name), getattr(bt, name)
+        assert a is not None and np.array_equal(a, b), name
+    assert bt.jginv_over.shape == (27, 6 ** 3, 3, 3)
+
+
 _NO_JAX = r"""
 import sys
 
@@ -72,12 +90,16 @@ sys.path.insert(0, sys.argv[1])
 import numpy as np
 import torch
 torch.set_num_threads(1)
+import hifiles_tpu.ops.les_filter
+import hifiles_tpu.ops.stabilization
 import hifiles_tpu_torch as ht
-from chip_smoke import tgv_plain_input
-p = tgv_plain_input(order=2)
-s = ht.Solver(p, ht.periodic_hex_mesh(3, 3, 3), device="cpu")
-s.run(1, dt=p.dt)
-assert np.isfinite(s.residual_norm(1)).all()
+from chip_smoke import make_solver, tgv_input
+for name in ("plain", "smag", "overint", "rans", "shock"):
+    p = tgv_input(order=2, config=name)
+    s = make_solver(p, ht.periodic_hex_mesh(3, 3, 3), name, "cpu",
+                    torch.float64)
+    s.run(1, dt=p.dt)
+    assert np.isfinite(s.residual_norm(1)).all(), name
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
 assert not loaded, loaded
 print("NO_JAX_OK")
@@ -85,6 +107,9 @@ print("NO_JAX_OK")
 
 
 def test_port_runs_with_jax_blocked():
+    """The port builds and steps the plain, smag, overint, rans and shock
+    Solvers, and imports the numpy functions of hifiles_tpu.ops.les_filter
+    and hifiles_tpu.ops.stabilization, with every JAX import refused."""
     env = dict(os.environ, OMP_NUM_THREADS="1")
     res = subprocess.run([sys.executable, "-c", _NO_JAX, ROOT],
                          capture_output=True, text=True, env=env,

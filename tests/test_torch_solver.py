@@ -1,6 +1,7 @@
 """Solver of the PyTorch port (hifiles_tpu_torch.Solver) against the JAX
 Solver at f64 on the CPU: RK45 steps from a handed-over state, the state
-conversion, and the configurations that are not ported yet."""
+conversion, and the configurations that are not ported yet (the feature
+physics is in test_torch_features.py)."""
 
 import os
 import sys
@@ -76,6 +77,30 @@ def test_step_matches_jax(adv_type):
                                atol=1e-14)
 
 
+@pytest.mark.parametrize("adv_type", [0, 1, 2, 3, 4])
+def test_step_post_stage_matches_jax(adv_type):
+    """The post-stage hook (shock capture's place) after every stage update,
+    against solver/step.py's post_stage; the port's hook works in place."""
+    from hifiles_tpu.solver.step import make_step_fn as jax_step_fn
+    from hifiles_tpu_torch.solver.step import make_step_fn
+    rng = np.random.default_rng(3)
+    u0, reg0, c = (rng.random((6, 5, 4)) for _ in range(3))
+    dt = 0.1
+    uj, rj = jax_step_fn(lambda u: -0.5 * u + c, adv_type,
+                         post_stage=lambda u: 0.9 * u + 0.01)(
+        jnp.asarray(u0), jnp.asarray(reg0), dt)
+    ct = torch.from_numpy(c)
+    ut, rt = torch.from_numpy(u0.copy()), torch.from_numpy(reg0.copy())
+    ut2, rt2 = make_step_fn(lambda u: -0.5 * u + ct, adv_type,
+                            post_stage=lambda u: u.mul_(0.9).add_(0.01))(
+        ut, rt, dt)
+    assert ut2 is ut
+    np.testing.assert_allclose(ut.numpy(), np.asarray(uj), rtol=0,
+                               atol=1e-14)
+    np.testing.assert_allclose(rt2.numpy(), np.asarray(rj), rtol=0,
+                               atol=1e-14)
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_convert_round_trip_exact(dtype):
     rng = np.random.default_rng(1)
@@ -90,11 +115,15 @@ def test_convert_round_trip_exact(dtype):
     assert np.array_equal(u2, u) and np.array_equal(r2, reg)
 
 
-def test_over_int_raises():
+def test_rans_hllc_raises():
+    """RANS with HLLC: the JAX SoA residual refuses it (its HLLC star states
+    carry no SA field) and the JAX package falls back to its slot path,
+    which the port does not have.  The deck check refuses the pairing too,
+    so it is set after setup_params."""
     p = tgv_input()
-    p.over_int = 1
-    p.over_int_order = p.order + 2
-    with pytest.raises(NotImplementedError, match="over-integration"):
+    p.RANS = 1
+    assert p.riemann_solve_type == 3
+    with pytest.raises(NotImplementedError, match="SA-RANS with HLLC"):
         hifiles_tpu_torch.Solver(p, periodic_hex_mesh(3, 3, 3))
 
 
