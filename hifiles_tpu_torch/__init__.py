@@ -9,7 +9,9 @@ device, with the JAX package's Pallas kernels written by hand in CUDA
 
 from hifiles_tpu.config import RunInput
 from hifiles_tpu.mesh import MeshData, periodic_hex_mesh
+from hifiles_tpu.mesh.generate import channel_hex_mesh
 
 from .solver import Solver
 
-__all__ = ["MeshData", "RunInput", "Solver", "periodic_hex_mesh"]
+__all__ = ["MeshData", "RunInput", "Solver", "channel_hex_mesh",
+           "periodic_hex_mesh"]

@@ -11,12 +11,17 @@ import numpy as np
 import torch
 
 
-def state_from_numpy(u_euf, reg_euf, device, dtype):
-    """(E, U, F) numpy state and RK register -> (U, F, E) tensors."""
-    to = lambda a: torch.as_tensor(
+def euf_to_ufe(a, device, dtype):
+    """One (E, U, F) numpy array -> a (U, F, E) tensor."""
+    return torch.as_tensor(
         np.ascontiguousarray(np.transpose(np.asarray(a), (1, 2, 0))),
         dtype=dtype, device=device)
-    return to(u_euf), to(reg_euf)
+
+
+def state_from_numpy(u_euf, reg_euf, device, dtype):
+    """(E, U, F) numpy state and RK register -> (U, F, E) tensors."""
+    return euf_to_ufe(u_euf, device, dtype), euf_to_ufe(reg_euf, device,
+                                                         dtype)
 
 
 def ufe_to_euf(t):

@@ -41,10 +41,14 @@ RK414_B = np.array([
 N_STAGES = {0: 1, 1: 4, 2: 4, 3: 5, 4: 14}
 
 
-def make_step_fn(residual_fn, adv_type: int, post_stage=None):
+def make_step_fn(residual_fn, adv_type: int, source_fn=None,
+                 post_stage=None):
     """Build step(u, reg, dt) -> (u, reg) advancing one full time step.
 
-    ``residual_fn(u)`` returns -div_tconf/detjac.  The step updates ``u``
+    ``residual_fn(u)`` returns -div_tconf/detjac, a new tensor; with
+    ``source_fn`` the stage rhs is residual + source_fn(u), the source
+    broadcasting against the state (ref:src/eles.cpp:1095-1247; the body
+    force is an (F, 1) column).  The step updates ``u``
     (and, for the 2N schemes, ``reg``) IN PLACE and returns them: the JAX
     step builds new arrays, here the state and register are each held
     once.  ``reg`` may be None for the first step of a 2N scheme.
@@ -52,6 +56,9 @@ def make_step_fn(residual_fn, adv_type: int, post_stage=None):
     must update ``u`` in place.  Coefficients stay Python floats, so an f32
     state stays f32."""
     ps = post_stage if post_stage is not None else (lambda u: u)
+    if source_fn is not None:
+        res = residual_fn
+        residual_fn = lambda u: res(u).add_(source_fn(u))
 
     if adv_type == 0:
         def step(u, reg, dt):

@@ -89,6 +89,16 @@ def inv_flux_p(u, d, gamma):
     return out
 
 
+def sutherland_mu_p(inte, gamma, mu_inf, rt_inf, c_sth, fix_vis):
+    """Dynamic viscosity from the internal-energy plane
+    (ref:src/flux.cpp:172-174): mu_inf (a float) when fix_vis, else
+    Sutherland's law."""
+    if fix_vis:
+        return mu_inf
+    rt_ratio = (gamma - 1.0) * inte / rt_inf
+    return mu_inf * rt_ratio**1.5 * (1.0 + c_sth) / (rt_ratio + c_sth)
+
+
 def visc_flux_p(u, gr, d, *, gamma, prandtl, mu_inf, rt_inf, c_sth, fix_vis,
                 rans=False, prandtl_t=0.9, c_v1=7.1, omega=2.0 / 3.0):
     """Viscous flux planes: u F-list, gr [d][F]-list -> [d][F]-list
@@ -99,11 +109,7 @@ def visc_flux_p(u, gr, d, *, gamma, prandtl, mu_inf, rt_inf, c_sth, fix_vis,
     v = [u[1 + m] * inv_rho for m in range(d)]
     q2 = sum(vi * vi for vi in v)
     inte = u[d + 1] * inv_rho - 0.5 * q2
-    if fix_vis:
-        mu = mu_inf
-    else:
-        rt_ratio = (gamma - 1.0) * inte / rt_inf
-        mu = mu_inf * rt_ratio**1.5 * (1.0 + c_sth) / (rt_ratio + c_sth)
+    mu = sutherland_mu_p(inte, gamma, mu_inf, rt_inf, c_sth, fix_vis)
     if rans:
         nu_tilde_c = u[d + 2]
         chi = nu_tilde_c / mu

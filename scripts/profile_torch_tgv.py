@@ -3,22 +3,30 @@
 
   python3 scripts/profile_torch_tgv.py [--config NAME] [--steps N] [--out DIR]
 
-Runs a TGV p=4 16^3 case of bench.py (--config plain, smag, overint, rans
-or shock; default plain) through hifiles_tpu_torch in f32, warms up 2 steps, then traces N steps (default 2) with
+Runs a case of bench.py through hifiles_tpu_torch in f32: --config plain,
+smag, overint, rans or shock (TGV p=4 on 16^3 periodic hexes; default
+plain) or channel (bench.run_channel: forced plane-channel LES, 16^3 hexes,
+p=4).  Warms up 2 steps, then traces N steps (default 2) with
 torch.profiler.  Prints the device time per kernel class (GEMM, the hand
-volume kernel, gathers/stores, other elementwise), the device busy share of
-the traced wall time, and the launches per RK stage; writes the top kernels
-and a chrome trace under --out (default profile_out/).  Needs CUDA.
+volume kernel, gathers/stores, other elementwise, and the boundary stage:
+every kernel launched inside the boundary functions), the device busy share
+of the traced wall time, the launches per RK stage, and the host syncs
+(cudaStreamSynchronize, aten::item) inside the traced steps; writes the top
+kernels and a chrome trace under --out (default profile_out/).  Needs CUDA.
 """
 
 import argparse
 import collections
+import functools
 import os
 import subprocess
 import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BOUNDARY = "boundary stage"
+SYNC_EVENTS = ("cudaStreamSynchronize", "aten::item",
+               "aten::_local_scalar_dense")
 
 
 def kernel_class(name):
@@ -32,6 +40,57 @@ def kernel_class(name):
     return "other elementwise"
 
 
+def annotate_boundary(bc_fns):
+    """Run every method of the boundary functions inside a profiler range
+    named BOUNDARY (the residual calls them once or twice per stage)."""
+    import torch
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with torch.profiler.record_function(BOUNDARY):
+                return fn(*args, **kwargs)
+        return inner
+    for name in ("ghost_state", "ldg_solution", "inv_common_flux",
+                 "visc_common_flux"):
+        setattr(bc_fns, name, wrap(getattr(bc_fns, name)))
+
+
+def breakdown(events):
+    """(device us by class, kernel launches, host syncs, rows) from the
+    profiler's events.  Every device event (kernel, memset, copy) counts
+    once, classed by its name; a kernel that an op launched inside
+    BOUNDARY is classed as the boundary stage instead.  Kernels launched
+    outside any op (the hand kernel, through ctypes) are linked to no op
+    and keep their name's class."""
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = collections.defaultdict(lambda: [0.0, 0])
+    bdy = collections.defaultdict(lambda: [0.0, 0])
+    syncs = 0
+    for ev in events:
+        if ev.name in SYNC_EVENTS:
+            syncs += 1
+        if ev.device_type == cuda and ev.name != BOUNDARY:
+            rows[ev.name][0] += ev.time_range.elapsed_us()
+            rows[ev.name][1] += 1
+        kernels = getattr(ev, "kernels", None) or []
+        parent = ev if kernels else None
+        while parent is not None and parent.name != BOUNDARY:
+            parent = parent.cpu_parent
+        if parent is not None:
+            for k in kernels:
+                bdy[k.name][0] += k.duration
+                bdy[k.name][1] += 1
+    by_class = collections.defaultdict(float)
+    for name, (us, n) in rows.items():
+        if name in bdy:
+            by_class["boundary stage (plain torch)"] += bdy[name][0]
+        by_class[kernel_class(name)] += us - bdy.get(name, (0.0,))[0]
+    launches = sum(n for _, n in rows.values())
+    return by_class, launches, syncs, rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", default="plain")
@@ -43,8 +102,8 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_tgv: CUDA is not available")
     sys.path.insert(0, ROOT)
-    from chip_smoke import SLICES, make_solver, tgv_input
-    from hifiles_tpu_torch import periodic_hex_mesh
+    from chip_smoke import SLICES, channel_input, make_solver, tgv_input
+    from hifiles_tpu_torch import channel_hex_mesh, periodic_hex_mesh
     from torch.profiler import ProfilerActivity, profile
 
     card = subprocess.run(
@@ -52,11 +111,19 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
     print(card)
-    if args.config not in SLICES:
-        raise SystemExit(f"profile_torch_tgv: --config one of {SLICES}")
-    p = tgv_input(order=4, config=args.config)
-    s = make_solver(p, periodic_hex_mesh(16, 16, 16), args.config, "cuda",
-                    torch.float32)
+    if args.config == "channel":
+        p = channel_input(order=4)
+        s = make_solver(p, channel_hex_mesh(16, 16, 16), args.config,
+                        "cuda", torch.float32)
+    elif args.config in SLICES:
+        p = tgv_input(order=4, config=args.config)
+        s = make_solver(p, periodic_hex_mesh(16, 16, 16), args.config,
+                        "cuda", torch.float32)
+    else:
+        raise SystemExit(f"profile_torch_tgv: --config one of "
+                         f"{SLICES + ['channel']}")
+    if s._bc_fns is not None:
+        annotate_boundary(s._bc_fns)
     s.run(2, dt=p.dt)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -66,34 +133,32 @@ def main():
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
 
-    by_class = collections.defaultdict(float)
-    launches = 0
-    rows = []
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = ev.self_cuda_time_total
-        if dev_us <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        by_class[kernel_class(ev.key)] += dev_us
-        launches += ev.count
-        rows.append((dev_us, ev.count, ev.key))
+    by_class, launches, syncs, rows = breakdown(prof.events())
     busy = sum(by_class.values())
+    # cross-check: the device time the profiler's own table reports (the
+    # BOUNDARY range's device-side span is not a kernel)
+    listed = sum(getattr(ev, "self_device_time_total", 0.0)
+                 for ev in prof.key_averages()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA
+                 and ev.key != BOUNDARY)
     stages = args.steps * s.n_stages
-    print(f"{args.config}: traced {args.steps} steps ({stages} RK stages): wall "
-          f"{wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
+    print(f"{args.config}: traced {args.steps} steps ({stages} RK stages): "
+          f"wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
           f"({100 * busy / wall_us:.1f}% busy, "
           f"{100 * (1 - busy / wall_us):.1f}% idle)")
     print(f"per RK stage: wall {wall_us / stages:.1f} us, device "
           f"{busy / stages:.1f} us, {launches / stages:.1f} kernel launches")
+    print(f"host syncs inside the traced steps: {syncs}; device events "
+          f"{busy / 1e3:.3f} ms, the profiler's table {listed / 1e3:.3f} ms")
     for cls, us in sorted(by_class.items(), key=lambda kv: -kv[1]):
-        print(f"  {cls:28s} {us / stages:9.1f} us/stage "
+        print(f"  {cls:30s} {us / stages:9.1f} us/stage "
               f"{100 * us / busy:5.1f}% of device time")
     os.makedirs(args.out, exist_ok=True)
     top = os.path.join(args.out, f"profile_{args.config}_kernels.txt")
     with open(top, "w") as f:
         f.write(f"{card}\n")
-        for dev_us, count, key in sorted(rows, reverse=True):
+        for key, (dev_us, count) in sorted(rows.items(),
+                                           key=lambda kv: -kv[1][0]):
             f.write(f"{dev_us:12.1f} us {count:6d}x  {key}\n")
     prof.export_chrome_trace(os.path.join(args.out,
                                           f"profile_{args.config}_trace.json"))

@@ -93,13 +93,21 @@ torch.set_num_threads(1)
 import hifiles_tpu.ops.les_filter
 import hifiles_tpu.ops.stabilization
 import hifiles_tpu_torch as ht
-from chip_smoke import make_solver, tgv_input
+from chip_smoke import channel_input, make_solver, tgv_input
 for name in ("plain", "smag", "overint", "rans", "shock"):
     p = tgv_input(order=2, config=name)
     s = make_solver(p, ht.periodic_hex_mesh(3, 3, 3), name, "cpu",
                     torch.float64)
     s.run(1, dt=p.dt)
     assert np.isfinite(s.residual_norm(1)).all(), name
+for wall_model in (0, 1):
+    p = channel_input(order=2, wall_model=wall_model)
+    s = ht.Solver(p, ht.channel_hex_mesh(3, 4, 2), device="cpu",
+                  dtype=torch.float64)
+    assert s.block.bdy_slot.size and s._bc_fns is not None
+    s.run(1, dt=p.dt)
+    assert np.isfinite(s.residual_norm(1)).all(), wall_model
+    assert np.isfinite(s.u_avg).all() and np.isfinite(s.inflow_massflux()).all()
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
 assert not loaded, loaded
 print("NO_JAX_OK")
@@ -108,8 +116,10 @@ print("NO_JAX_OK")
 
 def test_port_runs_with_jax_blocked():
     """The port builds and steps the plain, smag, overint, rans and shock
-    Solvers, and imports the numpy functions of hifiles_tpu.ops.les_filter
-    and hifiles_tpu.ops.stabilization, with every JAX import refused."""
+    Solvers and the walled, forced, averaged channel (with and without a
+    wall model), and imports the numpy functions of
+    hifiles_tpu.ops.les_filter and hifiles_tpu.ops.stabilization, with every
+    JAX import refused."""
     env = dict(os.environ, OMP_NUM_THREADS="1")
     res = subprocess.run([sys.executable, "-c", _NO_JAX, ROOT],
                          capture_output=True, text=True, env=env,

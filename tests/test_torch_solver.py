@@ -13,7 +13,8 @@ import torch
 import jax.numpy as jnp
 
 from hifiles_tpu import HEX
-from hifiles_tpu.config.params import ADIABAT_WALL, CYCLIC
+from hifiles_tpu.config.params import (ADIABAT_WALL, CYCLIC, SUB_IN_SIMP,
+                                       BCParams)
 from hifiles_tpu.mesh.core import build_faces
 from hifiles_tpu.mesh.generate import channel_hex_mesh, periodic_hex_mesh
 from hifiles_tpu.ops.operators import build_tensor_ops
@@ -21,6 +22,7 @@ from hifiles_tpu.solver.solver import Solver as JaxSolver
 
 import hifiles_tpu_torch
 from hifiles_tpu_torch.convert import state_from_numpy, state_to_numpy
+from hifiles_tpu_torch.solver.bc import make_bc_functions
 from hifiles_tpu_torch.solver.elements import build_element_block
 from hifiles_tpu_torch.solver.residual import ResidualConfig
 from hifiles_tpu_torch.solver.residual_soa import make_residual_soa
@@ -135,6 +137,8 @@ def test_local_dt_raises():
 
 
 def test_boundary_faces_raise():
+    """Boundary faces need the boundary functions, and those refuse a
+    turbulent inlet (an inflow with inlet_type > 0 under LES) by name."""
     mesh = channel_hex_mesh(3, 2, 3)
     dc = np.array([2 * np.pi, 0.0, np.pi])
     conn = build_faces(mesh, {0: CYCLIC, 1: ADIABAT_WALL}, dc)
@@ -147,6 +151,13 @@ def test_boundary_faces_raise():
                          mu_inf=1e-3)
     with pytest.raises(NotImplementedError, match="boundary faces"):
         make_residual_soa(block, cfg, "cpu", torch.float64)
+    p.LES = 1
+    p.bc_list = [BCParams(name="Cyclic", flag=CYCLIC),
+                 BCParams(name="Inflow", flag=SUB_IN_SIMP, rho=1.0,
+                          velocity=(1.0, 0.0, 0.0), inlet_type=1)]
+    bc = make_bc_functions(p, block, cfg, "cpu", torch.float64)
+    with pytest.raises(NotImplementedError, match="turbulent inlets"):
+        make_residual_soa(block, cfg, "cpu", torch.float64, bc)
 
 
 def test_cuda_device_without_cuda_raises():
