@@ -1,17 +1,29 @@
 """hifiles_tpu_torch: the PyTorch/CUDA port of hifiles_tpu for NVIDIA Hopper.
 
-A second package beside the JAX one, which stays the reference.  It takes
-the JAX package's numpy host types (RunInput decks, MeshData meshes and
-their generators, operator builders) and runs the time loop on a torch
-device, with the JAX package's Pallas kernels written by hand in CUDA
-(csrc/).  It never imports JAX.
+A second package beside the JAX one, which stays the reference.  It carries
+its own copies of the JAX package's numpy host layers (config/: the deck
+parser and RunInput; mesh/: MeshData, face connectivity, generators and
+readers; ops/: the operator builders; native/: the C++ mesh kernels) and
+runs the time loop on a torch device, with the JAX package's Pallas kernels
+written by hand in CUDA (csrc/).  It imports neither JAX nor hifiles_tpu.
 """
 
-from hifiles_tpu.config import RunInput
-from hifiles_tpu.mesh import MeshData, periodic_hex_mesh
-from hifiles_tpu.mesh.generate import channel_hex_mesh
+# Element type codes, matching ref:include/global.h:46-55 (CTYPE enum);
+# copied from hifiles_tpu/__init__.py:22-29.  They come before the
+# subpackage imports, which read them.
+TRI = 0
+QUAD = 1
+TET = 2
+PRISM = 3
+HEX = 4
 
-from .solver import Solver
+CTYPE_NAMES = {TRI: "tri", QUAD: "quad", TET: "tet", PRISM: "prism", HEX: "hex"}
 
-__all__ = ["MeshData", "RunInput", "Solver", "channel_hex_mesh",
-           "periodic_hex_mesh"]
+from .config import RunInput  # noqa: E402
+from .mesh import (MeshData, channel_hex_mesh, channel_quad_mesh,  # noqa: E402
+                   periodic_hex_mesh, periodic_quad_mesh, periodic_tet_mesh)
+from .solver import Solver  # noqa: E402
+
+__all__ = ["CTYPE_NAMES", "HEX", "PRISM", "QUAD", "TET", "TRI", "MeshData",
+           "RunInput", "Solver", "channel_hex_mesh", "channel_quad_mesh",
+           "periodic_hex_mesh", "periodic_quad_mesh", "periodic_tet_mesh"]

@@ -26,9 +26,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lib = None
 
 
-def select_device(device="cpu") -> torch.device:
-    """torch.device for ``device``: "cuda" (or "cuda:0") means the first
-    GPU and raises when CUDA is missing; never falls back to the CPU.
+def select_device(device="cuda") -> torch.device:
+    """torch.device for ``device``: "cuda" (the default, or "cuda:0")
+    means the first GPU and raises when CUDA is missing; never falls back
+    to the CPU, which only an explicit "cpu" selects.
 
     Also turns TF32 off for matmuls and cuDNN: the FR operators lose
     accuracy in TF32 (the counterpart of the JAX package's

@@ -1,14 +1,54 @@
-"""State exchange between the JAX package and the port.
+"""Exchange between the JAX package and the port.
 
 The JAX solver exposes its state as (E, U, F) arrays; the port steps an
-elements-minor (U, F, E) state.  The element block needs no conversion:
-both packages build it with the same numpy host code.
+elements-minor (U, F, E) state.  ``run_input_from`` and ``mesh_from`` turn
+the JAX package's RunInput and MeshData into the port's own copies of those
+types, attribute by attribute (numpy arrays copied), without importing the
+JAX package: the port's Solver takes only its own types.
 """
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
+
+from .config.deck import Deck
+from .config.params import BCParams, RunInput
+from .mesh.core import MeshData
+
+
+def _copy_attrs(src, dst):
+    """Every instance attribute of ``src`` (dataclass fields and the ones
+    set on it later, e.g. by a deck's setup) onto ``dst``; numpy arrays
+    and lists are copied, so the two objects share no mutable state."""
+    for name, val in vars(src).items():
+        setattr(dst, name, copy.deepcopy(val))
+    return dst
+
+
+def run_input_from(p) -> RunInput:
+    """The port's RunInput equal to another package's RunInput ``p``
+    (its boundary list and parsed deck included)."""
+    out = RunInput()
+    for name, val in vars(p).items():
+        if name == "bc_list":
+            val = [_copy_attrs(bc, BCParams(name=bc.name)) for bc in val]
+        elif name == "_deck" and val is not None:
+            deck = Deck("", name=val.name)
+            deck._lines = copy.deepcopy(val._lines)
+            val = deck
+        else:
+            val = copy.deepcopy(val)
+        setattr(out, name, val)
+    return out
+
+
+def mesh_from(mesh) -> MeshData:
+    """The port's MeshData equal to another package's MeshData ``mesh``."""
+    return _copy_attrs(mesh, MeshData(n_dims=mesh.n_dims, xv=None, c2v=None,
+                                      c2n_v=None, ctype=None, bc_id=None))
 
 
 def euf_to_ufe(a, device, dtype):

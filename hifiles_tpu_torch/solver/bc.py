@@ -22,12 +22,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from hifiles_tpu.config.params import (AD_WALL, ADIABAT_WALL, CHAR,
-                                       ISOTHERM_WALL, SLIP_WALL,
-                                       SLIP_WALL_DUAL, SUB_IN_CHAR,
-                                       SUB_IN_SIMP, SUB_OUT_CHAR,
-                                       SUB_OUT_SIMP, SUP_IN, SUP_OUT,
-                                       RunInput)
+from ..config.params import (AD_WALL, ADIABAT_WALL, CHAR, ISOTHERM_WALL,
+                             SLIP_WALL, SLIP_WALL_DUAL, SUB_IN_CHAR,
+                             SUB_IN_SIMP, SUB_OUT_CHAR, SUB_OUT_SIMP, SUP_IN,
+                             SUP_OUT, RunInput)
 
 from ..models.wall_model import wall_stress_flux
 from .residual_soa import (HLLC, ROEM, RUSANOV, _normal_flux_p, hllc_p,

@@ -1,12 +1,9 @@
 """Element blocks: batched geometry transforms + face gather tables.
 
 Copied from hifiles_tpu/solver/elements.py (lines 27-447 and the corner
-helpers at 618-636) with only the imports rewired: hifiles_tpu.solver
-imports JAX at package level, so this numpy host code is carried here.
-The mixed-mesh tables (MixedMeshTables, build_mixed_blocks) are not
-copied yet.  The over-integration operators come from
-hifiles_tpu.ops.stabilization, whose JAX imports sit inside its shock
-capture factories.
+helpers at 618-636) with only the imports rewired to the port's own
+copies of the host layers (mesh/, ops/, native/).  The mixed-mesh tables
+(MixedMeshTables, build_mixed_blocks) are not copied yet.
 
 This replaces the reference's eles/inters pointer machinery
 (ref:src/eles.cpp:4015-4393 set_transforms, ref:src/int_inters.cpp:67-121
@@ -26,11 +23,11 @@ from typing import Any
 
 import numpy as np
 
-from hifiles_tpu import HEX, PRISM, QUAD, TET, TRI
-from hifiles_tpu.mesh.core import FaceConnectivity, MeshData
-from hifiles_tpu.mesh.shape import shape_basis, shape_dbasis
-from hifiles_tpu.ops.operators import ElementOps
-from hifiles_tpu.ops.stabilization import build_over_int_ops
+from .. import HEX, PRISM, QUAD, TET, TRI
+from ..mesh.core import FaceConnectivity, MeshData
+from ..mesh.shape import shape_basis, shape_dbasis
+from ..ops.operators import ElementOps
+from ..ops.stabilization import build_over_int_ops
 
 
 def _adjugate(J: np.ndarray) -> np.ndarray:
@@ -127,7 +124,7 @@ def match_fpts_grouped(pf_flat: np.ndarray, sls: list, srs: list,
     """Batched match_fpts over many faces, grouped by flux-point count;
     dispatches to the native kernel (native/mesh_kernels.cc hf_match_fpts)
     with a per-face numpy fallback."""
-    from hifiles_tpu import native
+    from .. import native
     perms = [None] * len(sls)
     groups: dict[int, list] = {}
     for f, s in enumerate(sls):
@@ -249,7 +246,7 @@ def mesh_shape_points(mesh: MeshData, sel: np.ndarray | None = None):
     n_spts = int(n_spts_all.max())
     if np.all(n_spts_all == n_spts):
         return mesh.xv[mesh.c2v[sel][:, :n_spts]], n_spts
-    from hifiles_tpu.mesh.shape import shape_ref_locs
+    from ..mesh.shape import shape_ref_locs
     rich = shape_ref_locs(ct, n_spts)
     spts = np.empty((sel.size, n_spts, d))
     for ns in np.unique(n_spts_all):

@@ -1,8 +1,7 @@
 """Initial conditions and analytic solutions, vectorized over points.
 
-Copied from hifiles_tpu/solver/ics.py with only the imports rewired:
-hifiles_tpu.solver imports JAX at package level, so this numpy host code
-is carried here.
+Copied from hifiles_tpu/solver/ics.py with only the imports rewired to the
+port's own config/ copy: the port imports nothing of hifiles_tpu.
 
 ic_form codes (ref:src/eles.cpp:261-489): 0 isentropic vortex, 1 uniform,
 2/3 sine wave single/group, 4 sphere, 5 const, 6 polynomial, 7 Taylor-Green,
@@ -190,7 +189,7 @@ def initial_condition(run_input, pos: np.ndarray, n_fields: int) -> np.ndarray:
     elif p_in.ic_form == 9:
         # stationary shock: supersonic state left of x_shock from SUP_IN/CHAR
         # bc, IC state right (ref:src/eles.cpp:372-431)
-        from hifiles_tpu.config.params import CHAR, SUP_IN
+        from ..config.params import CHAR, SUP_IN
         bc = next((b for b in p_in.bc_list if b.flag in (SUP_IN, CHAR)), None)
         if bc is None:
             raise ValueError("ic_form=9 needs a sup_in or char boundary")
@@ -332,7 +331,7 @@ def analytic_solution(run_input, pos: np.ndarray, time: float,
     elif tc == 4:
         sol[..., 0] = eval_sphere_wave(pos, p_in.wave_speed, time)
     elif tc == 5:
-        from hifiles_tpu.config.params import ISOTHERM_WALL
+        from ..config.params import ISOTHERM_WALL
         u_wall, T_wall = 0.0, 0.0
         for b in p_in.bc_list:
             if b.flag == ISOTHERM_WALL:

@@ -1,7 +1,8 @@
 """Structure-of-arrays FR residual on torch: state (U, F, E), elements minor.
 
-Port of hifiles_tpu/solver/residual_soa.py for one periodic single-type
-block (interior faces only, uniform faces): 3-D Navier-Stokes or Euler with
+Port of hifiles_tpu/solver/residual_soa.py for one single-type block with
+uniform faces (quads, tris, hexes or tets; interior, cyclic and boundary
+faces): 2-D or 3-D Navier-Stokes or Euler with
 constant or Sutherland viscosity, Rusanov, RoeM or HLLC with LDG, and the
 feature physics of the JAX path: the LES SGS models (eddy viscosity and
 similarity; SVV filters the state in solver.py), over-integration and
@@ -26,7 +27,7 @@ import os
 import numpy as np
 import torch
 
-from hifiles_tpu.ops.les_filter import build_les_filter
+from ..ops.les_filter import build_les_filter
 
 from .elements import ElementBlock
 from .residual import BlockArrays, ResidualConfig
@@ -34,7 +35,7 @@ from .volume import (SGS_NONE, SGS_SMAGORINSKY, SGS_WALE, VolumeParams,
                      sgs_flux_p, sgs_kwargs, softplus, sutherland_mu_p,
                      visc_flux_p, visc_kwargs, volume_tdisf)
 
-# hifiles_tpu.ops.riemann codes (that module imports JAX)
+# the Riemann solver codes of hifiles_tpu/ops/riemann.py (a JAX module)
 RUSANOV, ROEM, HLLC = 0, 2, 3
 # reference-element volume per element type, for the LES cutoff length
 # (residual_soa.py:157-160 of the JAX package)
@@ -51,8 +52,11 @@ class SoaTables:
     ``slot_l``/``slot_r`` (nfp, Fi): the paired flux-point slots
     e*Pf + fpt of each interior face's two sides, oriented by the JAX rule
     (L = the side with the smaller local face, residual_soa.py:104-119) so
-    that the face intermediates match the JAX ones.  ``slot_b`` (nfp, Fb):
-    the slots of each boundary face (the block's bdy_slot)."""
+    that the face intermediates match the JAX ones.  The pairing is point
+    by point (the block matched the points by position), so the tri faces
+    of tets, whose flux points turn with the face's orientation, need no
+    rotation table or face groups.  ``slot_b`` (nfp, Fb): the slots of
+    each boundary face (the block's bdy_slot)."""
 
     def __init__(self, block: ElementBlock):
         ops = block.ops
@@ -416,8 +420,6 @@ def unsupported(block: ElementBlock, cfg: ResidualConfig,
     when the residual can be built."""
     d = block.ops.n_dims
     missing = []
-    if d != 3:
-        missing.append(f"d={d} (the volume kernel is 3-D)")
     if cfg.equation != 0:
         missing.append("advection-diffusion (equation 1)")
     if cfg.riemann_solve_type not in (RUSANOV, ROEM, HLLC):
@@ -482,7 +484,7 @@ def make_residual_soa(block: ElementBlock, cfg: ResidualConfig, device,
         omega=cfg.omega, C_s=cfg.C_s, kappa=cfg.kappa,
         sgs=(SGS_NONE if not use_eddy else
              SGS_SMAGORINSKY if cfg.sgs_model == 0 else SGS_WALE))
-    visc_kw = visc_kwargs(prm, nF)
+    visc_kw = visc_kwargs(prm, nF, d)
     sgs_kw = sgs_kwargs(prm)
     sa_kw = dict(gamma=gamma, mu_inf=cfg.mu_inf, rt_inf=cfg.rt_inf,
                  c_sth=cfg.c_sth, fix_vis=cfg.fix_vis, kappa=cfg.kappa,

@@ -1,7 +1,8 @@
 """Solver orchestration: config + mesh -> time stepping on a torch device.
 
-Port of hifiles_tpu/solver/solver.py for one hex block: the "SoA (fast)"
-chunk and the "SoA featured (fast)" chunk (solver.py:380-482), i.e. the
+Port of hifiles_tpu/solver/solver.py (:32-276) for one quad, tri, hex or
+tet block: the "SoA (fast)" chunk and the "SoA featured (fast)" chunk
+(solver.py:380-482), i.e. the
 features of the SoA residual port with boundary conditions and wall models,
 the SVV pre-step filter, shock capture, the BC ramp counter, bulk-momentum
 body forcing and running time averages; fixed dt.  Setup runs once on the
@@ -16,12 +17,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from hifiles_tpu import HEX
-from hifiles_tpu.config.params import (ADIABAT_WALL, CYCLIC, ISOTHERM_WALL,
-                                       RunInput)
-from hifiles_tpu.mesh.core import NUM_F_PER_C, MeshData, build_faces
-from hifiles_tpu.ops.les_filter import build_les_filter
-from hifiles_tpu.ops.operators import build_tensor_ops
+from .. import CTYPE_NAMES, HEX, PRISM, QUAD, TET, TRI
+from ..config.params import ADIABAT_WALL, CYCLIC, ISOTHERM_WALL, RunInput
+from ..mesh.core import NUM_F_PER_C, MeshData, build_faces
+from ..ops.les_filter import build_les_filter
+from ..ops.operators import build_tensor_ops, build_tet_ops, build_tri_ops
 
 from ..backend import select_device
 from ..convert import euf_to_ufe, state_from_numpy, ufe_to_euf
@@ -42,8 +42,13 @@ def _unsupported(p: RunInput, mesh: MeshData) -> list:
     """Solver features this port does not cover yet (the residual's own
     are reported by residual_soa.unsupported)."""
     missing = []
-    if not np.all(mesh.ctype == HEX):
-        missing.append("element types other than hex")
+    types = np.unique(mesh.ctype)
+    if types.size > 1:
+        missing.append("mixed element types ("
+                       + ", ".join(CTYPE_NAMES[int(t)] for t in types)
+                       + "; MixedSolver)")
+    elif int(types[0]) == PRISM:
+        missing.append("prism blocks (non-uniform faces; MixedSolver)")
     # turbulent inlets, equation 1 (the BC flags are checked per block)
     missing += not_ported(p, ())
     if p.dt_type != 0:
@@ -51,12 +56,41 @@ def _unsupported(p: RunInput, mesh: MeshData) -> list:
     return missing
 
 
-class Solver:
-    """Single-hex-block, single-device solver on ``device`` ("cpu" or
-    "cuda"), taking the JAX package's RunInput and MeshData."""
+def build_ops(p: RunInput, ctype: int):
+    """The FR operators of one element type from the deck's per-type
+    options (solver.py:59-88 of the JAX package)."""
+    if ctype == QUAD:
+        return build_tensor_ops(QUAD, p.order, p.upts_type_quad,
+                                p.vcjh_scheme_quad, p.eta_quad)
+    if ctype == HEX:
+        return build_tensor_ops(HEX, p.order, p.upts_type_hexa,
+                                p.vcjh_scheme_hexa, p.eta_hexa)
+    if ctype == TRI:
+        return build_tri_ops(p.order, p.upts_type_tri, p.fpts_type_tri,
+                             p.vcjh_scheme_tri, p.c_tri)
+    if ctype == TET:
+        return build_tet_ops(p.order, p.upts_type_tet, p.fpts_type_tet,
+                             p.vcjh_scheme_tet, p.c_tet)
+    raise NotImplementedError(f"hifiles_tpu_torch Solver: not ported yet: "
+                              f"{CTYPE_NAMES.get(ctype, ctype)} blocks")
 
-    def __init__(self, run_input: RunInput, mesh: MeshData, device="cpu",
+
+class Solver:
+    """Single-element-type (quad, tri, hex or tet), single-device solver
+    on ``device`` ("cuda", the default, or "cpu"), taking the port's own
+    RunInput and MeshData (convert.run_input_from and convert.mesh_from
+    turn the JAX package's into these)."""
+
+    def __init__(self, run_input: RunInput, mesh: MeshData, device="cuda",
                  dtype=torch.float64):
+        if not isinstance(run_input, RunInput):
+            raise TypeError("Solver takes hifiles_tpu_torch's RunInput "
+                            "(convert.run_input_from), got "
+                            f"{type(run_input).__module__}")
+        if not isinstance(mesh, MeshData):
+            raise TypeError("Solver takes hifiles_tpu_torch's MeshData "
+                            "(convert.mesh_from), got "
+                            f"{type(mesh).__module__}")
         missing = _unsupported(run_input, mesh)
         if missing:
             raise NotImplementedError("hifiles_tpu_torch Solver: not ported "
@@ -81,9 +115,7 @@ class Solver:
                                  run_input.dz_cyclic])[:self.n_dims]
         self._bc_flags = bc_flags
         self.conn = build_faces(mesh, bc_flags, delta_cyclic)
-        self.ops = build_tensor_ops(
-            HEX, run_input.order, run_input.upts_type_hexa,
-            run_input.vcjh_scheme_hexa, run_input.eta_hexa)
+        self.ops = build_ops(run_input, int(mesh.ctype[0]))
         self.block = build_element_block(
             mesh, self.conn, self.ops, delta_cyclic=delta_cyclic,
             over_int_order=(run_input.over_int_order if run_input.over_int

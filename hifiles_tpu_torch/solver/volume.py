@@ -4,18 +4,20 @@
 hifiles_tpu/solver/pallas_kernels.py::volume_tdisf_fm, written by hand in
 CUDA C++ (csrc/volume_tdisf.cu) and extended to the volume stage of every
 configuration the port runs (residual_soa.py:1094-1139 of the JAX
-package): SA-RANS (F = 6), Sutherland viscosity, the eddy-viscosity SGS
-flux (Smagorinsky or WALE), an added physical flux (the similarity SGS
-flux), and the inviscid part on or off (the over-integration path launches
-it once at the cubature points, inviscid only, and once at the solution
-points, viscous only).  ``volume_tdisf_ref`` is the same algebra in torch
-ops, composed from the plane functions below: the CPU path and the
-reference the kernel is held against.
+package) at d = 2 and d = 3: SA-RANS (F = d + 3), Sutherland viscosity,
+the eddy-viscosity SGS flux (Smagorinsky or WALE), an added physical flux
+(the similarity SGS flux), and the inviscid part on or off (the
+over-integration path launches it once at the cubature points, inviscid
+only, and once at the solution points, viscous only).
+``volume_tdisf_ref`` is the same algebra in torch ops, composed from the
+plane functions below: the CPU path and the reference the kernel is held
+against.
 
 Layouts (elements minor, as the residual's state):
   u (U, F, E), grad (d, U, F, E), jg (d, d, U, E'), delta and wdist
   (U, E'), extra (d, U, F, E), with E' = E or 1 (one broadcast column)
   -> tdisf (d, U, F, E),  tdisf[l][:, i] = sum_m jg[l][m] * f_i,m.
+The dimension d of a launch is read from jg.
 """
 
 from __future__ import annotations
@@ -28,7 +30,6 @@ import torch
 
 from .. import backend
 
-D = 3
 SGS_NONE, SGS_SMAGORINSKY, SGS_WALE = -1, 0, 1
 
 
@@ -36,8 +37,8 @@ SGS_NONE, SGS_SMAGORINSKY, SGS_WALE = -1, 0, 1
 class VolumeParams:
     """What the volume stage computes, fixed for a residual.  ``mu`` is
     mu_inf; ``fix_vis`` 0 is Sutherland's law; ``sgs`` is SGS_NONE,
-    SGS_SMAGORINSKY or SGS_WALE; F = 6 (the SA field) turns the SA terms
-    on."""
+    SGS_SMAGORINSKY or SGS_WALE; F = d + 3 (the SA field) turns the SA
+    terms on."""
     gamma: float = 1.4
     prandtl: float = 0.72
     mu: float = 0.0
@@ -206,11 +207,11 @@ def sgs_flux_p(u, gr, delta, wdist, d, *, sgs_model, C_s, gamma, prandtl_t,
     return out
 
 
-def visc_kwargs(prm: VolumeParams, n_fields: int) -> dict:
-    """visc_flux_p keywords of a VolumeParams."""
+def visc_kwargs(prm: VolumeParams, n_fields: int, d: int) -> dict:
+    """visc_flux_p keywords of a VolumeParams at dimension d."""
     return dict(gamma=prm.gamma, prandtl=prm.prandtl, mu_inf=prm.mu,
                 rt_inf=prm.rt_inf, c_sth=prm.c_sth, fix_vis=prm.fix_vis,
-                rans=n_fields == D + 3, prandtl_t=prm.prandtl_t,
+                rans=n_fields == d + 3, prandtl_t=prm.prandtl_t,
                 c_v1=prm.c_v1, omega=prm.omega)
 
 
@@ -231,13 +232,14 @@ def volume_tdisf_ref(u, grad, jg, prm: VolumeParams, delta=None, wdist=None,
     ``wdist`` only with an SGS model; ``extra`` is added to the physical
     flux before the transform."""
     F = u.shape[1]
+    D = jg.shape[0]
     up = list(u.unbind(1))
     zero = torch.zeros_like(up[0])
     fl = (inv_flux_p(up, D, prm.gamma) if prm.inviscid
           else [[zero] * F for _ in range(D)])
     if prm.viscous:
         gr = [list(g.unbind(1)) for g in grad.unbind(0)]
-        fv = visc_flux_p(up, gr, D, **visc_kwargs(prm, F))
+        fv = visc_flux_p(up, gr, D, **visc_kwargs(prm, F, D))
         if prm.sgs != SGS_NONE:
             fs = sgs_flux_p(up, gr, delta, wdist, D, **sgs_kwargs(prm))
             fv = [[a + b for a, b in zip(fv[m], fs[m])] for m in range(D)]
@@ -245,15 +247,23 @@ def volume_tdisf_ref(u, grad, jg, prm: VolumeParams, delta=None, wdist=None,
     if extra is not None:
         fl = [[a + b for a, b in zip(fl[m], extra[m].unbind(1))]
               for m in range(D)]
-    return torch.stack([
-        torch.stack([jg[l, 0] * fl[0][i] + jg[l, 1] * fl[1][i]
-                     + jg[l, 2] * fl[2][i] for i in range(F)], dim=1)
-        for l in range(D)])
+
+    def transform(l, i):
+        acc = jg[l, 0] * fl[0][i]
+        for m in range(1, D):
+            acc = acc + jg[l, m] * fl[m][i]
+        return acc
+    return torch.stack([torch.stack([transform(l, i) for i in range(F)],
+                                    dim=1) for l in range(D)])
 
 
 def _check(u, grad, jg, prm, delta, wdist, extra):
+    D = jg.shape[0] if jg.dim() == 4 else 0
+    if D not in (2, 3):
+        raise ValueError(f"jg must be (d, d, U, E) with d = 2 or 3, got "
+                         f"{tuple(jg.shape)}")
     if u.dim() != 3 or u.shape[1] not in (D + 2, D + 3):
-        raise ValueError(f"u must be (U, {D + 2} or {D + 3}, E), "
+        raise ValueError(f"u must be (U, {D + 2} or {D + 3}, E) at d = {D}, "
                          f"got {tuple(u.shape)}")
     U, F, E = u.shape
 
@@ -297,7 +307,7 @@ class _Args(ctypes.Structure):
     """HftVolumeArgs of csrc/volume_tdisf.cu: shapes, strides and scalar
     parameters of one launch."""
     _fields_ = [(n, ctypes.c_int64) for n in (
-        "n_upts", "n_eles", "n_fields", "jg_stride", "delta_stride",
+        "n_upts", "n_eles", "n_fields", "n_dims", "jg_stride", "delta_stride",
         "wdist_stride")] + [(n, ctypes.c_double) for n in (
             "gamma", "prandtl", "prandtl_t", "mu_inf", "rt_inf", "c_sth",
             "c_v1", "omega", "C_s", "kappa")] + [(n, ctypes.c_int32) for n in (
@@ -315,10 +325,11 @@ def _entry(dtype):
     return fn
 
 
-def variant(prm: VolumeParams, n_fields: int, has_extra: bool) -> str:
-    """Name of what one launch computes, e.g. "F6+inviscid+viscous" or
-    "F5+viscous+wale+added-flux"."""
-    parts = [f"F{n_fields}"]
+def variant(prm: VolumeParams, n_fields: int, has_extra: bool,
+            n_dims: int) -> str:
+    """Name of what one launch computes, e.g. "D3F6+inviscid+viscous" or
+    "D2F4+viscous+wale+added-flux"."""
+    parts = [f"D{n_dims}F{n_fields}"]
     if prm.inviscid:
         parts.append("inviscid")
     if prm.viscous:
@@ -344,12 +355,13 @@ def volume_tdisf(u, grad, jg, prm: VolumeParams, delta=None, wdist=None,
     if u.device.type != "cuda":
         raise ValueError(f"volume_tdisf: unsupported device {u.device}")
     U, F, E = u.shape
+    D = jg.shape[0]
     sgs = prm.sgs if prm.viscous else SGS_NONE
     stride = lambda t: 1 if t is not None and t.shape[-1] == E and E > 1 \
         else 0
     ptr = lambda t: None if t is None else t.data_ptr()
     args = _Args(
-        n_upts=U, n_eles=E, n_fields=F, jg_stride=stride(jg),
+        n_upts=U, n_eles=E, n_fields=F, n_dims=D, jg_stride=stride(jg),
         delta_stride=stride(delta), wdist_stride=stride(wdist),
         gamma=prm.gamma, prandtl=prm.prandtl, prandtl_t=prm.prandtl_t,
         mu_inf=prm.mu, rt_inf=prm.rt_inf, c_sth=prm.c_sth, c_v1=prm.c_v1,
@@ -367,7 +379,7 @@ def volume_tdisf(u, grad, jg, prm: VolumeParams, delta=None, wdist=None,
         raise RuntimeError(f"volume_tdisf kernel launch failed: CUDA error "
                            f"{rc}")
     volume_tdisf.launches += 1
-    volume_tdisf.by_variant[variant(prm, F, extra is not None)] += 1
+    volume_tdisf.by_variant[variant(prm, F, extra is not None, D)] += 1
     return out
 
 

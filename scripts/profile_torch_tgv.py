@@ -5,14 +5,16 @@
 
 Runs a case of bench.py through hifiles_tpu_torch in f32: --config plain,
 smag, overint, rans or shock (TGV p=4 on 16^3 periodic hexes; default
-plain) or channel (bench.run_channel: forced plane-channel LES, 16^3 hexes,
-p=4).  Warms up 2 steps, then traces N steps (default 2) with
-torch.profiler.  Prints the device time per kernel class (GEMM, the hand
+plain), channel (bench.run_channel: forced plane-channel LES, 16^3 hexes,
+p=4), quad (bench.mixed_input's 2-D viscous vortex, p=4, on 96^2 periodic
+quads) or tet (the TGV deck, p=4, on 12^3 periodic Kuhn tets).  Warms up
+2 steps, then traces N steps (default 2) with torch.profiler.  Prints the device time per kernel class (GEMM, the hand
 volume kernel, gathers/stores, other elementwise, and the boundary stage:
 every kernel launched inside the boundary functions), the device busy share
 of the traced wall time, the launches per RK stage, and the host syncs
 (cudaStreamSynchronize, aten::item) inside the traced steps; writes the top
-kernels and a chrome trace under --out (default profile_out/).  Needs CUDA.
+kernels and a chrome trace under --out (default profile_out/), and the host
+ops that take the most self CPU time.  Needs CUDA.
 """
 
 import argparse
@@ -102,8 +104,9 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_tgv: CUDA is not available")
     sys.path.insert(0, ROOT)
-    from chip_smoke import SLICES, channel_input, make_solver, tgv_input
-    from hifiles_tpu_torch import channel_hex_mesh, periodic_hex_mesh
+    from chip_smoke import (NEW_SLICES, SLICES, channel_input, make_solver,
+                            slice_case)
+    from hifiles_tpu_torch import channel_hex_mesh
     from torch.profiler import ProfilerActivity, profile
 
     card = subprocess.run(
@@ -115,13 +118,12 @@ def main():
         p = channel_input(order=4)
         s = make_solver(p, channel_hex_mesh(16, 16, 16), args.config,
                         "cuda", torch.float32)
-    elif args.config in SLICES:
-        p = tgv_input(order=4, config=args.config)
-        s = make_solver(p, periodic_hex_mesh(16, 16, 16), args.config,
-                        "cuda", torch.float32)
+    elif args.config in SLICES + NEW_SLICES:
+        p, mesh = slice_case(args.config)
+        s = make_solver(p, mesh, args.config, "cuda", torch.float32)
     else:
         raise SystemExit(f"profile_torch_tgv: --config one of "
-                         f"{SLICES + ['channel']}")
+                         f"{SLICES + ['channel'] + NEW_SLICES}")
     if s._bc_fns is not None:
         annotate_boundary(s._bc_fns)
     s.run(2, dt=p.dt)
@@ -153,6 +155,17 @@ def main():
     for cls, us in sorted(by_class.items(), key=lambda kv: -kv[1]):
         print(f"  {cls:30s} {us / stages:9.1f} us/stage "
               f"{100 * us / busy:5.1f}% of device time")
+    # where the host's time goes: self CPU time per op name, per stage
+    host = sorted(((ev.key, ev.self_cpu_time_total, ev.count)
+                   for ev in prof.key_averages()
+                   if ev.device_type == torch.autograd.DeviceType.CPU),
+                  key=lambda r: -r[1])
+    total = sum(r[1] for r in host)
+    print(f"host: {total / stages:.1f} us/stage of self CPU time in "
+          f"{sum(r[2] for r in host) / stages:.1f} op calls; top ops:")
+    for key, us, n in host[:8]:
+        print(f"  {key:30s} {us / stages:9.1f} us/stage "
+              f"{n / stages:6.1f} calls/stage")
     os.makedirs(args.out, exist_ok=True)
     top = os.path.join(args.out, f"profile_{args.config}_kernels.txt")
     with open(top, "w") as f:

@@ -32,6 +32,7 @@ from hifiles_tpu.solver.bc import make_bc_functions as jax_bc_functions
 from hifiles_tpu.solver.solver import Solver as JaxSolver
 
 import hifiles_tpu_torch
+from hifiles_tpu_torch.convert import mesh_from, run_input_from
 from hifiles_tpu_torch.models.wall_model import wall_stress_flux
 from hifiles_tpu_torch.solver import residual_soa as trs
 from hifiles_tpu_torch.solver.bc import make_bc_functions
@@ -169,7 +170,8 @@ def build(case):
         p = duct_input(*DUCT[a["pair"]], riemann=a.get("riemann", 3))
         mesh = duct_mesh()
     js = JaxSolver(p, mesh)
-    ts = hifiles_tpu_torch.Solver(p, mesh, device="cpu")
+    ts = hifiles_tpu_torch.Solver(run_input_from(p), mesh_from(mesh),
+                                  device="cpu")
     return js, ts, p
 
 
@@ -315,29 +317,37 @@ def test_turbulent_inlet_raises():
                    DUCT["sub_simp"][1])
     p.LES, p.SGS_model = 1, 0
     with pytest.raises(NotImplementedError, match="turbulent inlets"):
-        hifiles_tpu_torch.Solver(p, duct_mesh())
+        hifiles_tpu_torch.Solver(run_input_from(p), mesh_from(duct_mesh()),
+                                 device="cpu")
 
 
 def test_ad_wall_raises():
     """AD_WALL belongs to advection-diffusion: the boundary functions
     report it and the residual refuses it by name."""
-    ts = hifiles_tpu_torch.Solver(channel_input(), channel_hex_mesh(3, 2, 2))
+    ts = hifiles_tpu_torch.Solver(run_input_from(channel_input()),
+                                  mesh_from(channel_hex_mesh(3, 2, 2)),
+                                  device="cpu")
     p = channel_input()
     p.bc_list = [BCParams(name="Cyclic", flag=CYCLIC),
                  BCParams(name="Wall", flag=AD_WALL)]
-    bc = make_bc_functions(p, ts.block, ts.rcfg, "cpu", torch.float64)
+    bc = make_bc_functions(run_input_from(p), ts.block, ts.rcfg, "cpu",
+                           torch.float64)
     assert any("AD_WALL" in m for m in bc.missing)
     with pytest.raises(NotImplementedError, match="AD_WALL"):
         trs.make_residual_soa(ts.block, ts.rcfg, "cpu", torch.float64, bc)
     with pytest.raises(NotImplementedError, match="AD_WALL"):
-        hifiles_tpu_torch.Solver(p, channel_hex_mesh(3, 2, 2))
+        hifiles_tpu_torch.Solver(run_input_from(p),
+                                 mesh_from(channel_hex_mesh(3, 2, 2)),
+                                 device="cpu")
 
 
 def test_equation_1_raises():
     p = channel_input()
     p.equation = 1
     with pytest.raises(NotImplementedError, match="advection-diffusion"):
-        hifiles_tpu_torch.Solver(p, channel_hex_mesh(3, 2, 2))
+        hifiles_tpu_torch.Solver(run_input_from(p),
+                                 mesh_from(channel_hex_mesh(3, 2, 2)),
+                                 device="cpu")
 
 
 def test_fluc_raises():

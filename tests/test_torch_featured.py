@@ -17,6 +17,7 @@ from hifiles_tpu.mesh.generate import channel_hex_mesh
 from hifiles_tpu.solver.solver import Solver as JaxSolver
 
 import hifiles_tpu_torch
+from hifiles_tpu_torch.convert import mesh_from, run_input_from
 
 sys.path.insert(0, os.path.dirname(__file__))
 from test_torch_boundaries import DUCT, duct_input, duct_mesh  # noqa: E402
@@ -60,7 +61,8 @@ def _pair(config, n=10):
     step, after n steps."""
     p, mesh = CONFIGS[config]()
     js = JaxSolver(p, mesh)
-    ts = hifiles_tpu_torch.Solver(p, mesh, device="cpu")
+    ts = hifiles_tpu_torch.Solver(run_input_from(p), mesh_from(mesh),
+                                  device="cpu")
     assert js.run_path == "SoA featured (fast)", js.run_path
     rng = np.random.default_rng(5)
     u0 = np.asarray(js.u) * (1.0 + 0.01 * rng.random(js.u.shape))
@@ -97,7 +99,8 @@ def test_spinup_restarts_average():
     """With spin-up 4.5 dt the average is the current state until t_sim
     passes it, then a running mean: after 5 steps it equals the state."""
     p, mesh = CONFIGS["spinup"]()
-    ts = hifiles_tpu_torch.Solver(p, mesh, device="cpu")
+    ts = hifiles_tpu_torch.Solver(run_input_from(p), mesh_from(mesh),
+                                  device="cpu")
     ts.run(5, dt=p.dt)
     u = ts.u
     rho = u[..., 0]
@@ -109,7 +112,8 @@ def test_spinup_restarts_average():
 
 def test_set_state_takes_featured_carry():
     p, mesh = CONFIGS["channel"]()
-    ts = hifiles_tpu_torch.Solver(p, mesh, device="cpu")
+    ts = hifiles_tpu_torch.Solver(run_input_from(p), mesh_from(mesh),
+                                  device="cpu")
     u = ts.u
     avg = np.random.default_rng(0).random(u.shape[:2] + (5,))
     ts.set_state(u, np.zeros_like(u), 0.5, iter_k=7, mdot_old=6.0,

@@ -20,6 +20,7 @@ from hifiles_tpu.solver import residual_soa as jrs
 from hifiles_tpu.solver.solver import Solver as JaxSolver
 
 import hifiles_tpu_torch
+from hifiles_tpu_torch.convert import mesh_from, run_input_from
 from hifiles_tpu_torch.ops.stabilization import make_shock_capture_soa
 from hifiles_tpu_torch.solver import residual_soa as trs
 
@@ -98,7 +99,8 @@ def test_residual_matches_jax(case, compress, monkeypatch):
     p = deck(**CASES[case])
     mesh = periodic_hex_mesh(3, 3, 3)
     js = JaxSolver(p, mesh)
-    ts = hifiles_tpu_torch.Solver(p, mesh, device="cpu")
+    ts = hifiles_tpu_torch.Solver(run_input_from(p), mesh_from(mesh),
+                                  device="cpu")
     u = _state(js, p)
     want = np.asarray(jrs.make_residual_soa(js.block, js.rcfg, jnp.float64)(
         jnp.asarray(u)))
@@ -116,11 +118,15 @@ def test_residual_cases_cover_configs():
     the port's residual builds the over-int operators, the SA field and
     the SGS planes for them."""
     p = deck(**CASES["rans_roem"])
-    ts = hifiles_tpu_torch.Solver(p, periodic_hex_mesh(3, 3, 3))
+    ts = hifiles_tpu_torch.Solver(run_input_from(p),
+                                  mesh_from(periodic_hex_mesh(3, 3, 3)),
+                                  device="cpu")
     assert ts.rcfg.rans and ts.rcfg.n_fields == 6
     assert ts.rcfg.riemann_solve_type == trs.ROEM
     p = deck(**CASES["over_int_viscous"])
-    ts = hifiles_tpu_torch.Solver(p, periodic_hex_mesh(3, 3, 3))
+    ts = hifiles_tpu_torch.Solver(run_input_from(p),
+                                  mesh_from(periodic_hex_mesh(3, 3, 3)),
+                                  device="cpu")
     assert ts.block.jginv_over is not None
     assert ts.block.opp_over.shape == (5 ** 3, 4 ** 3)
 
@@ -135,7 +141,8 @@ def test_steps_match_jax(config):
     p = deck(**attrs)
     mesh = periodic_hex_mesh(3, 3, 3)
     js = JaxSolver(p, mesh)
-    ts = hifiles_tpu_torch.Solver(p, mesh, device="cpu")
+    ts = hifiles_tpu_torch.Solver(run_input_from(p), mesh_from(mesh),
+                                  device="cpu")
     u0 = np.asarray(js.u)
     ts.set_state(u0, np.zeros_like(u0), 0.0)
     js.run(5, dt=p.dt)
@@ -152,7 +159,9 @@ def test_shock_capture_matches_jax():
     version, with s0 at the median sensor so that both branches run; the
     port's capture writes the state in place."""
     p = deck(order=3)
-    ts = hifiles_tpu_torch.Solver(p, periodic_hex_mesh(3, 3, 3))
+    ts = hifiles_tpu_torch.Solver(run_input_from(p),
+                                  mesh_from(periodic_hex_mesh(3, 3, 3)),
+                                  device="cpu")
     ops = ts.ops
     rng = np.random.default_rng(3)
     u = np.ascontiguousarray(np.transpose(np.asarray(ts.u), (1, 2, 0)))
@@ -204,8 +213,9 @@ def test_rans_f32_high_chi_finite():
     free-stream level): the softplus in psi must not overflow
     (tests/test_residual_soa.py::test_soa_rans_f32_high_chi)."""
     p = deck(RANS=1, riemann_solve_type=0)
-    ts = hifiles_tpu_torch.Solver(p, periodic_hex_mesh(3, 3, 3),
-                                  dtype=torch.float32)
+    ts = hifiles_tpu_torch.Solver(run_input_from(p),
+                                  mesh_from(periodic_hex_mesh(3, 3, 3)),
+                                  device="cpu", dtype=torch.float32)
     ts.u_soa[:, -1] = p.mu_tilde_inf
     chi = p.mu_tilde_inf / p.mu_inf
     assert chi == pytest.approx(5.0)

@@ -81,8 +81,8 @@ import sys
 
 class BlockJax:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
-            raise ImportError("jax import blocked: " + name)
+        if name.split(".")[0] in ("jax", "jaxlib", "hifiles_tpu"):
+            raise ImportError("import blocked: " + name)
         return None
 
 sys.meta_path.insert(0, BlockJax())
@@ -90,10 +90,9 @@ sys.path.insert(0, sys.argv[1])
 import numpy as np
 import torch
 torch.set_num_threads(1)
-import hifiles_tpu.ops.les_filter
-import hifiles_tpu.ops.stabilization
 import hifiles_tpu_torch as ht
-from chip_smoke import channel_input, make_solver, tgv_input
+from chip_smoke import (channel_input, make_solver, periodic_tri_mesh,
+                        tgv_input, vortex_input)
 for name in ("plain", "smag", "overint", "rans", "shock"):
     p = tgv_input(order=2, config=name)
     s = make_solver(p, ht.periodic_hex_mesh(3, 3, 3), name, "cpu",
@@ -108,7 +107,16 @@ for wall_model in (0, 1):
     s.run(1, dt=p.dt)
     assert np.isfinite(s.residual_norm(1)).all(), wall_model
     assert np.isfinite(s.u_avg).all() and np.isfinite(s.inflow_massflux()).all()
-loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
+for mesh, p in ((ht.periodic_quad_mesh(3, 3, -10, 10, -10, 10),
+                 vortex_input(order=2)),
+                (periodic_tri_mesh(3, 3, -10, 10, -10, 10),
+                 vortex_input(order=2)),
+                (ht.periodic_tet_mesh(2, 2, 2), tgv_input(order=2))):
+    s = ht.Solver(p, mesh, device="cpu", dtype=torch.float64)
+    s.run(1, dt=p.dt)
+    assert np.isfinite(s.residual_norm(1)).all(), int(mesh.ctype[0])
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "hifiles_tpu"))
 assert not loaded, loaded
 print("NO_JAX_OK")
 """
@@ -116,10 +124,9 @@ print("NO_JAX_OK")
 
 def test_port_runs_with_jax_blocked():
     """The port builds and steps the plain, smag, overint, rans and shock
-    Solvers and the walled, forced, averaged channel (with and without a
-    wall model), and imports the numpy functions of
-    hifiles_tpu.ops.les_filter and hifiles_tpu.ops.stabilization, with every
-    JAX import refused."""
+    Solvers, the walled, forced, averaged channel (with and without a wall
+    model), and a quad, a tri and a tet Solver, with every import of JAX
+    and of the JAX package hifiles_tpu refused."""
     env = dict(os.environ, OMP_NUM_THREADS="1")
     res = subprocess.run([sys.executable, "-c", _NO_JAX, ROOT],
                          capture_output=True, text=True, env=env,

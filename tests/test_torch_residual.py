@@ -16,6 +16,7 @@ from hifiles_tpu.solver.residual_soa import make_residual_soa as jax_soa
 from hifiles_tpu.solver.solver import Solver as JaxSolver
 
 import hifiles_tpu_torch
+from hifiles_tpu_torch.convert import mesh_from, run_input_from
 from hifiles_tpu_torch.solver.residual_soa import make_residual_soa
 
 sys.path.insert(0, os.path.dirname(__file__))
@@ -44,7 +45,8 @@ def solvers():
                        ("inviscid_rusanov", _inviscid_rusanov)):
         p, mesh = make()
         out[name] = (JaxSolver(p, mesh),
-                     hifiles_tpu_torch.Solver(p, mesh, device="cpu"))
+                     hifiles_tpu_torch.Solver(run_input_from(p),
+                                              mesh_from(mesh), device="cpu"))
     return out
 
 

@@ -21,7 +21,8 @@ from hifiles_tpu.ops.operators import build_tensor_ops
 from hifiles_tpu.solver.solver import Solver as JaxSolver
 
 import hifiles_tpu_torch
-from hifiles_tpu_torch.convert import state_from_numpy, state_to_numpy
+from hifiles_tpu_torch.convert import (mesh_from, run_input_from,
+                                       state_from_numpy, state_to_numpy)
 from hifiles_tpu_torch.solver.bc import make_bc_functions
 from hifiles_tpu_torch.solver.elements import build_element_block
 from hifiles_tpu_torch.solver.residual import ResidualConfig
@@ -40,7 +41,8 @@ def test_rk45_steps_match_jax():
     p = tgv_input()
     mesh = periodic_hex_mesh(4, 4, 4)
     js = JaxSolver(p, mesh)
-    ts = hifiles_tpu_torch.Solver(p, mesh, device="cpu")
+    ts = hifiles_tpu_torch.Solver(run_input_from(p), mesh_from(mesh),
+                                  device="cpu")
     rng = np.random.default_rng(0)
     js.u = js.u * (1.0 + 0.01 * jnp.asarray(rng.random(js.u.shape)))
     ts.set_state(np.asarray(js.u), np.asarray(js.reg), js.time)
@@ -52,7 +54,9 @@ def test_rk45_steps_match_jax():
     assert np.abs(u_t - u_j).max() < 1e-10 * np.abs(u_j).max()
     r_j, r_t = js.residual_norm(1), ts.residual_norm(1)
     assert np.all(np.abs(r_t - r_j) < 1e-10 * np.abs(r_j))
-    p.test_case = 1                  # isentropic vortex: an analytic target
+    # isentropic vortex: an analytic target (the port's Solver holds its
+    # own copy of the deck)
+    p.test_case = ts.p.test_case = 1
     e_j, e_t = js.compute_error(2), ts.compute_error(2)
     assert np.all(e_j[0] > 0)
     assert np.all(np.abs(e_t - e_j) <= 1e-10 * np.abs(e_j))
@@ -126,14 +130,18 @@ def test_rans_hllc_raises():
     p.RANS = 1
     assert p.riemann_solve_type == 3
     with pytest.raises(NotImplementedError, match="SA-RANS with HLLC"):
-        hifiles_tpu_torch.Solver(p, periodic_hex_mesh(3, 3, 3))
+        hifiles_tpu_torch.Solver(run_input_from(p),
+                                 mesh_from(periodic_hex_mesh(3, 3, 3)),
+                                 device="cpu")
 
 
 def test_local_dt_raises():
     p = tgv_input()
     p.dt_type = 2
     with pytest.raises(NotImplementedError, match="dt_type"):
-        hifiles_tpu_torch.Solver(p, periodic_hex_mesh(3, 3, 3))
+        hifiles_tpu_torch.Solver(run_input_from(p),
+                                 mesh_from(periodic_hex_mesh(3, 3, 3)),
+                                 device="cpu")
 
 
 def test_boundary_faces_raise():
@@ -155,7 +163,8 @@ def test_boundary_faces_raise():
     p.bc_list = [BCParams(name="Cyclic", flag=CYCLIC),
                  BCParams(name="Inflow", flag=SUB_IN_SIMP, rho=1.0,
                           velocity=(1.0, 0.0, 0.0), inlet_type=1)]
-    bc = make_bc_functions(p, block, cfg, "cpu", torch.float64)
+    bc = make_bc_functions(run_input_from(p), block, cfg, "cpu",
+                           torch.float64)
     with pytest.raises(NotImplementedError, match="turbulent inlets"):
         make_residual_soa(block, cfg, "cpu", torch.float64, bc)
 
@@ -164,5 +173,32 @@ def test_cuda_device_without_cuda_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
-        hifiles_tpu_torch.Solver(tgv_input(), periodic_hex_mesh(3, 3, 3),
+        hifiles_tpu_torch.Solver(run_input_from(tgv_input()),
+                                 mesh_from(periodic_hex_mesh(3, 3, 3)),
                                  device="cuda")
+
+
+def test_entry_points_default_to_the_card():
+    """Solver() and select_device() run on the card unless the caller asks
+    for the CPU; without a GPU they raise and never fall back."""
+    import inspect
+    from hifiles_tpu_torch.backend import select_device
+    for fn in (hifiles_tpu_torch.Solver, select_device):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        assert select_device().type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        select_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        hifiles_tpu_torch.Solver(run_input_from(tgv_input()),
+                                 mesh_from(periodic_hex_mesh(2, 2, 2)))
+
+
+def test_solver_takes_only_the_ports_types():
+    """The JAX package's RunInput and MeshData go through convert first."""
+    p, mesh = tgv_input(), periodic_hex_mesh(2, 2, 2)
+    with pytest.raises(TypeError, match="run_input_from"):
+        hifiles_tpu_torch.Solver(p, mesh_from(mesh), device="cpu")
+    with pytest.raises(TypeError, match="mesh_from"):
+        hifiles_tpu_torch.Solver(run_input_from(p), mesh, device="cpu")

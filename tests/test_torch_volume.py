@@ -3,7 +3,8 @@ the plain version against the JAX package's Pallas kernel
 (pallas_kernels.volume_tdisf_fm, interpret mode on CPU) on the kernel's own
 coverage, and for every option the Pallas kernel lacks (SA field,
 Sutherland viscosity, SGS flux, inviscid part off, added flux) against the
-same algebra composed from the JAX plane functions of residual_soa.py; and
+same algebra composed from the JAX plane functions of residual_soa.py, at
+d = 3 and d = 2 (quads and tris); and
 the wrapper's CPU dispatch and input checks.  The CUDA kernel itself is
 held against the plain version on the card by chip_smoke.py."""
 
@@ -119,29 +120,31 @@ FEATURE_KW = dict(gamma=1.4, prandtl=0.72, mu=1e-3, viscous=True,
                   kappa=0.41)
 
 
-def feature_inputs(F, geo, extra, seed=5):
-    """f64 inputs: u (U, F, E) with chi = nu~/mu in [-2, 20] for F = 6 (both
-    branches of psi and the clip of mu_t), grad, jg, delta and wdist (both
-    branches of the Smagorinsky wall limit) and an added flux."""
+def feature_inputs(F, geo, extra, seed=5, d=D):
+    """f64 inputs at dimension d: u (U, F, E) with chi = nu~/mu in [-2, 20]
+    for F = d + 3 (both branches of psi and the clip of mu_t), grad, jg,
+    delta and wdist (both branches of the Smagorinsky wall limit) and an
+    added flux."""
     rng = np.random.default_rng(seed)
     u = rng.random((U, F, E)) + 1.0
-    u[:, 4] += 10.0
-    if F == 6:
-        u[:, 5] = 1e-3 * rng.uniform(-2.0, 20.0, (U, E))
-    grad = rng.normal(size=(D, U, F, E)) * 1e-1
+    u[:, d + 1] += 10.0
+    if F == d + 3:
+        u[:, d + 2] = 1e-3 * rng.uniform(-2.0, 20.0, (U, E))
+    grad = rng.normal(size=(d, U, F, E)) * 1e-1
     ne = 1 if geo == "broadcast" else E
-    jg = rng.random((D, D, U, ne))
+    jg = rng.random((d, d, U, ne))
     delta = 0.1 + 0.2 * rng.random((U, ne))
     wdist = 0.2 * rng.random((U, ne))
-    xf = rng.normal(size=(D, U, F, E)) * 1e-2 if extra else None
+    xf = rng.normal(size=(d, U, F, E)) * 1e-2 if extra else None
     return u, grad, jg, delta, wdist, xf
 
 
 def jax_volume(u, grad, jg, prm, delta, wdist, xf):
     """The volume stage of residual_soa.py:1094-1139 composed from the JAX
     plane functions: inviscid rows (_normal_flux_p along each unit axis),
-    visc_flux_p, sgs_flux_p, the added flux, then adj(J)."""
+    visc_flux_p, sgs_flux_p, the added flux, then adj(J); d from jg."""
     F = u.shape[1]
+    D = jg.shape[0]
     up = [jnp.asarray(u[:, i]) for i in range(F)]
     one, zero = jnp.ones_like(up[0]), jnp.zeros_like(up[0])
     fl = [jrs._normal_flux_p(up, [one if k == m else zero for k in range(D)],
@@ -153,7 +156,7 @@ def jax_volume(u, grad, jg, prm, delta, wdist, xf):
         fv = jrs.visc_flux_p(
             up, gr, D, gamma=prm.gamma, prandtl=prm.prandtl,
             mu_inf=prm.mu, rt_inf=prm.rt_inf, c_sth=prm.c_sth,
-            fix_vis=prm.fix_vis, rans=F == 6, prandtl_t=prm.prandtl_t,
+            fix_vis=prm.fix_vis, rans=F == D + 3, prandtl_t=prm.prandtl_t,
             c_v1=prm.c_v1, omega=prm.omega)
         if prm.sgs != SGS_NONE:
             fs = jrs.sgs_flux_p(up, gr, jnp.asarray(delta),
@@ -185,6 +188,46 @@ def test_volume_ref_options_match_jax_planes(variant, geo):
     assert np.isfinite(want).all() and scale > 0
     np.testing.assert_allclose(got.numpy(), want, rtol=0,
                                atol=1e-12 * max(scale, 1.0))
+    assert volume_tdisf.launches == 0
+
+
+@pytest.mark.parametrize("geo", ["full", "broadcast"])
+@pytest.mark.parametrize("variant", sorted(VARIANTS) + ["ns"])
+def test_volume_ref_2d_matches_jax_planes(variant, geo):
+    """The d = 2 volume stage (quads and tris: F = 4, or 5 with the SA
+    field) against the JAX plane functions called with d = 2."""
+    v = VARIANTS.get(variant, {})
+    F = 5 if v.get("F") == 6 else 4
+    prm = dataclasses.replace(VolumeParams(**FEATURE_KW), **v.get("prm", {}))
+    u, grad, jg, delta, wdist, xf = feature_inputs(F, geo, v.get("extra"),
+                                                   d=2)
+    want = jax_volume(u, grad, jg, prm, delta, wdist, xf)
+    t = lambda a: None if a is None else torch.from_numpy(a)
+    got = volume_tdisf(t(u), t(grad), t(jg), prm, t(delta), t(wdist), t(xf))
+    assert got.shape == want.shape == (2, U, F, E)
+    scale = np.abs(want).max()
+    assert np.isfinite(want).all() and scale > 0
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-12 * max(scale, 1.0))
+    assert volume_tdisf.launches == 0
+
+
+def test_wrapper_rejects_bad_2d_inputs():
+    """At d = 2 (read from jg) u takes 4 or 5 fields and grad and the added
+    flux carry 2 dimension planes."""
+    u, grad, jg, delta, wdist, xf = (
+        torch.from_numpy(a) for a in feature_inputs(4, "full", True, d=2))
+    prm = VolumeParams(**FEATURE_KW)
+    volume_tdisf(u, grad, jg, prm, extra=xf)
+    with pytest.raises(ValueError):
+        volume_tdisf(torch.cat([u, u[:, :2]], 1), None, jg,
+                     VolumeParams(viscous=False))
+    with pytest.raises(ValueError):
+        volume_tdisf(u, torch.cat([grad, grad[:1]]), jg, prm)
+    with pytest.raises(ValueError):
+        volume_tdisf(u, grad, jg[:, :1].contiguous(), prm)
+    with pytest.raises(ValueError):
+        volume_tdisf(u, grad, jg, prm, extra=torch.cat([xf, xf[:1]]))
     assert volume_tdisf.launches == 0
 
 
