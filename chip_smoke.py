@@ -17,22 +17,31 @@ prints no result line):
                steps) for `plain` and each feature configuration (4^3 p=3),
                the wall-bounded ones (the channel's small twin, the
                wall-modelled channels, a ramped inflow/outflow duct, the
-               quad channels with walls, wall model and SA-RANS), and the
+               quad channels with walls, wall model and SA-RANS), the
                quad, tri and tet blocks (the vortex on 8^2 quads, a
-               periodic tri box, RoeM and over-integration on tets);
+               periodic tri box, RoeM and over-integration on tets), and
+               the mixed meshes through MixedSolver (the tri+quad box with
+               Smagorinsky LES and with over-integration, the wall-modelled
+               tri+quad channel, the wall-modelled prism/tet channel, a
+               prism TGV box);
   5. reference - the isentropic vortex (16^2 quads, p=3, f64, 100 steps)
-               against the reference binary's L2 error row, and the tet
-               over-integration case (3^3, p=3, 25 steps) against its L1
-               residual row;
+               against the reference binary's L2 error row, and the tet,
+               tri+quad and prism over-integration cases and the
+               wall-modelled prism/tet channel against its L1 residual
+               rows;
   6. slices  - the `plain`, `smag`, `overint`, `rans` and `shock` cases of
                bench.py (TGV p=4 on 16^3 periodic hexes, f32) and its
                `channel` case (forced plane-channel LES on 16^3 hexes, p=4,
                f32, bench.run_channel) for 10 + 10 steps each, gated on
                bench.GOLDENS; the `quad` (bench.mixed_input's vortex, p=4,
                96^2 quads) and `tet` (the TGV deck, p=4, 12^3 Kuhn tets)
-               slices gated on TORCH_GOLDENS; the kernels' launch counts
-               read around each run; the `quad` and `tet` rates from 8
-               interleaved 10-step repeats;
+               slices gated on TORCH_GOLDENS; bench.py's `mixed` (the
+               vortex on the 96^2 tri+quad box, p=4) and `mixed3d` (the
+               wall-modelled prism/tet LES channel, p=2) cases through
+               MixedSolver, gated on bench.GOLDENS; the kernels' launch
+               counts read around each run; the rates of `quad`, `tet`,
+               `mixed` and `mixed3d` beside `plain` from 8 interleaved
+               10-step repeats, and their launches per RK stage;
   7. checks  - no module of JAX or of the JAX package was imported.
 The last two lines are the kernel record and {"ok": true, "device": ...}.
 The script imports nothing of JAX and nothing of the JAX package.
@@ -82,6 +91,17 @@ VORTEX_L2_GOLD = [2.1256349151199823e-04, 6.1372013985323446e-04,
                   6.3453168975985310e-04, 1.6902774295053655e-03]
 TET_OVERINT_GOLD = [0.07863888, 0.64529890, 0.64317376, 0.37543747,
                     19.72164115]
+# and the iter-25 L1 rows of the tri+quad box (6^2, p=3, over-integration;
+# MIX2D_OVERINT_GOLD, :384-413, held to 2e-3 * max(0.05, gold)) and of the
+# periodic 4^3 prism box (p=3, over-integration; PRISM_OVERINT_GOLD,
+# :339-353, 2e-4 * max(0.05, gold)), and the iter-100 L1 row of the
+# wall-modelled prism/tet channel (channel_prism_tet_mesh(4, 4, 2, 2), p=2;
+# tests/test_mixed_wall_model.py:99-130 PRISM_TET_WM_GOLD, 1e-5 per entry)
+MIX2D_OVERINT_GOLD = [0.00253871, 0.01610982, 0.01617601, 0.51149966]
+PRISM_OVERINT_GOLD = [0.00306439, 0.07352466, 0.07351704, 0.05934145,
+                      0.73944568]
+PRISM_TET_WM_GOLD = [0.00000004, 0.00117114, 0.00000670, 0.00087835,
+                     0.00000279]
 # The `quad` and `tet` slices' L1 rows after 10 + 10 f32 steps, recorded by
 # the JAX package on the CPU: `JAX_PLATFORMS=cpu python
 # scripts/gen_torch_goldens.py quad tet` (2026-10-16).
@@ -93,6 +113,8 @@ TORCH_GOLDENS = {
             1.1797680043921853e-01],
 }
 NEW_SLICES = ["quad", "tet"]
+# bench.py's mixed-mesh cases, through MixedSolver, gated on bench.GOLDENS
+MIXED_SLICES = ["mixed", "mixed3d"]
 N_RATE_REPEATS = 8
 # the card's published peaks (H100 SXM data sheet, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -253,14 +275,27 @@ def slice_case(name):
     """(deck, mesh) of a slice at full width: the bench TGV cases (p=4 on
     16^3 periodic hexes); `quad`, bench.mixed_input()'s vortex on the quad
     half of the `mixed` cell's 96^2 box (9,216 quads, p=4); `tet`,
-    bench.run_tgv's TGV deck on 12^3 Kuhn tets (10,368 tets, p=4)."""
-    from hifiles_tpu_torch import (periodic_hex_mesh, periodic_quad_mesh,
-                                   periodic_tet_mesh)
+    bench.run_tgv's TGV deck on 12^3 Kuhn tets (10,368 tets, p=4);
+    `mixed` (bench.run_mixed, bench.py:322-342), the same vortex on the
+    96^2 tri+quad box (4,608 quads and 9,216 tris, p=4); `mixed3d`
+    (bench.run_mixed3d, bench.py:345-374), the deck
+    tests/decks/input_prism_tet_wm_bench on channel_prism_tet_mesh(32, 32,
+    4, 4): 8,192 prisms near the wall and 24,576 tets above, p=2."""
+    from hifiles_tpu_torch import (RunInput, channel_prism_tet_mesh,
+                                   periodic_hex_mesh, periodic_mixed_mesh_2d,
+                                   periodic_quad_mesh, periodic_tet_mesh)
     if name in SLICES:
         return tgv_input(order=4, config=name), periodic_hex_mesh(16, 16, 16)
     if name == "quad":
         return vortex_input(order=4), periodic_quad_mesh(96, 96, -10, 10,
                                                          -10, 10)
+    if name == "mixed":
+        return vortex_input(order=4), periodic_mixed_mesh_2d(96, 96, -10, 10,
+                                                             -10, 10)
+    if name == "mixed3d":
+        return (RunInput.from_deck(os.path.join(DECKS,
+                                                "input_prism_tet_wm_bench")),
+                channel_prism_tet_mesh(32, 32, 4, 4, x1=2.0, y1=1.0, z1=1.0))
     return tgv_input(order=4), periodic_tet_mesh(12, 12, 12)
 
 
@@ -295,6 +330,52 @@ def periodic_tri_mesh(nx, ny, x0=-1.0, x1=1.0, y0=-1.0, y1=1.0):
                         or (np.abs(pts[:, ax] - hi[ax]) < 1e-10).all()):
                     bc_id[c, k] = 0
     return mesh
+
+
+def mixed_wall_mesh(nx=8, ny=4):
+    """periodic_mixed_mesh_2d(nx, ny) on [0, 4] x [0, 1] with walls at
+    y = 0 and y = 1 in group 2 ("Wall"), cyclic in x (the mesh of
+    tests/test_mixed_wall_model.py:56-74)."""
+    import numpy as np
+    from hifiles_tpu_torch import periodic_mixed_mesh_2d
+    from hifiles_tpu_torch.mesh.core import NUM_F_PER_C, corner_vlist_face
+    mesh = periodic_mixed_mesh_2d(nx, ny, 0.0, 4.0, 0.0, 1.0)
+    mesh.bc_names = ["Cyc", "unused", "Wall"]
+    for c in range(mesh.n_cells):
+        for k in range(NUM_F_PER_C[int(mesh.ctype[c])]):
+            if mesh.bc_id[c, k] < 0:
+                continue
+            vl = corner_vlist_face(int(mesh.ctype[c]), int(mesh.c2n_v[c]), k)
+            y = mesh.xv[mesh.c2v[c, vl], 1]
+            on_y = (np.abs(y) < 1e-10).all() or (np.abs(y - 1.0) < 1e-10).all()
+            mesh.bc_id[c, k] = 2 if on_y else 0
+    return mesh
+
+
+def small_mixed():
+    """name -> (deck, mesh) of the card-vs-CPU runs through MixedSolver:
+    the vortex of `mixed` on the 6^2 tri+quad box (p=3) with Smagorinsky
+    LES and with over-integration; the wall-modelled tri+quad channel; the
+    wall-modelled prism/tet channel of input_prism_tet_wm_25 on
+    channel_prism_tet_mesh(3, 2, 2, 2) (p=2); the TGV deck on
+    periodic_prism_mesh(3, 3, 3) (p=3)."""
+    from hifiles_tpu_torch import (RunInput, channel_prism_tet_mesh,
+                                   periodic_mixed_mesh_2d,
+                                   periodic_prism_mesh)
+    box = lambda: periodic_mixed_mesh_2d(6, 6, -10, 10, -10, 10)
+    les, over = vortex_input(order=3), vortex_input(order=3)
+    les.LES, les.SGS_model, les.C_s = 1, 0, 0.1
+    over.over_int, over.over_int_order = 1, 5
+    return {
+        "mixed_les": (les, box()),
+        "mixed_overint": (over, box()),
+        "mixed_channel_wm1": (quad_wall_input(wall_model=1),
+                              mixed_wall_mesh()),
+        "prism_tet_wm": (RunInput.from_deck(os.path.join(
+            DECKS, "input_prism_tet_wm_25")),
+            channel_prism_tet_mesh(3, 2, 2, 2, x1=2.0, y1=1.0, z1=1.0)),
+        "prism_tgv": (tgv_input(order=3), periodic_prism_mesh(3, 3, 3)),
+    }
 
 
 def small_bounded():
@@ -336,13 +417,41 @@ def small_types():
 
 
 def make_solver(p, mesh, config, device, dtype):
-    """The port's Solver for a deck; for `rans`, nu~ is seeded at the
-    free-stream level as bench.py:305-309 does (the TGV IC leaves it 0)."""
-    from hifiles_tpu_torch import Solver
-    s = Solver(p, mesh, device=device, dtype=dtype)
+    """The port's Solver for a deck, or its MixedSolver for a mesh of
+    several element types or of prisms (as the JAX package's command-line
+    entry point routes them); for `rans`, nu~ is seeded at the free-stream level as
+    bench.py:305-309 does (the TGV IC leaves it 0)."""
+    import numpy as np
+    from hifiles_tpu_torch import PRISM, MixedSolver, Solver
+    types = np.unique(mesh.ctype)
+    mixed = types.size > 1 or int(types[0]) == PRISM
+    s = (MixedSolver if mixed else Solver)(p, mesh, device=device,
+                                           dtype=dtype)
     if config == "rans":
         s.u_soa[:, -1] = p.mu_tilde_inf
     return s
+
+
+def flat(x):
+    """A solver's state (or averages) as one numpy vector: Solver gives
+    one array, MixedSolver a tuple of them."""
+    import numpy as np
+    return np.concatenate([a.ravel() for a in
+                           (x if isinstance(x, tuple) else (x,))])
+
+
+def type_names(mesh):
+    """The element types of a mesh, e.g. "tri+quad"."""
+    import numpy as np
+    from hifiles_tpu_torch import CTYPE_NAMES
+    return "+".join(CTYPE_NAMES[int(t)] for t in np.unique(mesh.ctype))
+
+
+def blocks_of(s):
+    """A solver's blocks as text: type, elements E and points U each."""
+    from hifiles_tpu_torch import CTYPE_NAMES
+    return ", ".join(f"{CTYPE_NAMES[b.ops.ele_type]} E={b.n_eles} "
+                     f"U={b.ops.n_upts}" for b in s._blocks)
 
 
 def cuda_ms(fn, n=N_TIMED, repeats=5):
@@ -455,6 +564,19 @@ VARIANTS = [
     # (six orientations: nothing compresses)
     dict(name="ns_tet", F=5, prm={}, U=35, E=10368, geos=("full",),
          path="tet"),
+    # the blocks of the mixed meshes, their launches told apart by shape
+    # (volume_tdisf.by_shape): the `mixed` quads (uniform, broadcast
+    # geometry) and tris (two orientations, full geometry), p=4; the
+    # `mixed3d` prisms and tets with Smagorinsky LES (full geometry, SGS
+    # cutoff and wall distance), p=2
+    dict(name="mixed_quad", D=2, F=4, prm={}, U=25, E=4608, path="mixed",
+         per_block=True),
+    dict(name="mixed_tri", D=2, F=4, prm={}, U=15, E=9216, geos=("full",),
+         path="mixed", per_block=True),
+    dict(name="mixed3d_prism", F=5, prm=dict(sgs=0), U=18, E=8192,
+         geos=("full",), path="mixed3d", per_block=True),
+    dict(name="mixed3d_tet", F=5, prm=dict(sgs=0), U=10, E=24576,
+         geos=("full",), path="mixed3d", per_block=True),
 ]
 # a viscous case whose viscous, SGS and SA terms are not lost in the
 # inviscid flux's scale (SGS cutoff delta ~ 1, mu = 0.05)
@@ -589,20 +711,22 @@ def phase_kernel():
 
 def phase_small(counts):
     """The port on the card against the port on the CPU (f64, 2 steps) for
-    each configuration of SMALL (4^3 p=3), of small_bounded() and of
-    small_types(): the whole slice, kernel included, at 1e-10 relative (the
-    running averages too).  Adds each card run's launch counts to
-    ``counts``."""
+    each configuration of SMALL (4^3 p=3), of small_bounded(), of
+    small_types() and of small_mixed(): the whole slice, kernel included,
+    at 1e-10 relative (the running averages too).  Adds each card run's
+    launch counts to ``counts``."""
     import numpy as np
     import torch
-    from hifiles_tpu_torch import CTYPE_NAMES, periodic_hex_mesh
+    from hifiles_tpu_torch import periodic_hex_mesh
     from hifiles_tpu_torch.solver.volume import volume_tdisf
     cases = {name: (tgv_input(order=3, config=name, **attrs),
                     periodic_hex_mesh(4, 4, 4))
              for name, attrs in SMALL.items()}
-    bounded = small_bounded()
-    cases.update(bounded)
+    walled = small_bounded()
+    bounded = set(walled) | {"mixed_channel_wm1", "prism_tet_wm"}
+    cases.update(walled)
     cases.update(small_types())
+    cases.update(small_mixed())
     for name, (p, mesh) in cases.items():
         gpu = make_solver(p, mesh, name, "cuda", torch.float64)
         cpu = make_solver(p, mesh, name, "cpu", torch.float64)
@@ -611,7 +735,7 @@ def phase_small(counts):
         torch.cuda.synchronize()
         run_counts = dict(volume_tdisf.by_variant)
         cpu.run(2, dt=p.dt)
-        ug, uc = gpu.u, cpu.u
+        ug, uc = flat(gpu.u), flat(cpu.u)
         err = np.abs(ug - uc).max() / np.abs(uc).max()
         rg, rc = gpu.residual_norm(1), cpu.residual_norm(1)
         # the wall-bounded rows are held against the largest row: their
@@ -623,10 +747,9 @@ def phase_small(counts):
         rerr = (np.abs(rg - rc) / np.maximum(np.abs(rc), floor)).max()
         aerr = 0.0
         if cpu.u_avg is not None:
-            aerr = np.abs(gpu.u_avg - cpu.u_avg).max() / np.abs(
-                cpu.u_avg).max()
-        log(f"small {name} f64 {CTYPE_NAMES[int(mesh.ctype[0])]} "
-            f"E={mesh.n_cells} "
+            ag, ac = flat(gpu.u_avg), flat(cpu.u_avg)
+            aerr = np.abs(ag - ac).max() / np.abs(ac).max()
+        log(f"small {name} f64 {type_names(mesh)} E={mesh.n_cells} "
             f"p={p.order}, card vs CPU "
             f"after 2 steps: state rel err {err:.3e}, residual row rel err "
             f"{rerr:.3e}, averages rel err {aerr:.3e}; launches "
@@ -639,29 +762,32 @@ def phase_small(counts):
 
 
 def last_stage_residual(s, n_steps, dt):
-    """The last RK45 stage's residual of step n_steps as (E, U, F) numpy,
-    computed as tests/test_regression_reference.py:108-125 does with the
-    port's RK45 coefficients: what the reference's residual monitor
-    reports."""
+    """The last RK45 stage's residual of step n_steps as (E, U, F) numpy
+    per block, computed as tests/test_regression_reference.py:108-125 does
+    with the port's RK45 coefficients: what the reference's residual
+    monitor reports."""
     import torch
-    from hifiles_tpu_torch.convert import ufe_to_euf
     from hifiles_tpu_torch.solver.step import RK45_A, RK45_B
     s.run(n_steps - 1, dt=dt)
     u, r = s.u_soa.clone(), torch.zeros_like(s.u_soa)
     for a, b in zip(RK45_A, RK45_B):
-        rhs = s.residual_soa(u)
+        rhs = s._rhs(u, None)
         r = a * r + dt * rhs
         u = u + b * r
-    return ufe_to_euf(rhs)
+    return s._to_numpy(rhs)
 
 
 def phase_reference(counts):
     """The port on the card in f64 against the reference HiFiLES binary:
     the isentropic vortex's L2 error row (VORTEX_L2_GOLD, 1e-10 per entry)
-    and the tet over-integration L1 row (TET_OVERINT_GOLD)."""
+    and the L1 monitor rows of the tet, tri+quad and prism over-integration
+    cases and of the wall-modelled prism/tet channel (TET_OVERINT_GOLD,
+    MIX2D_OVERINT_GOLD, PRISM_OVERINT_GOLD, PRISM_TET_WM_GOLD)."""
     import numpy as np
     import torch
-    from hifiles_tpu_torch import (RunInput, Solver, periodic_quad_mesh,
+    from hifiles_tpu_torch import (RunInput, Solver, channel_prism_tet_mesh,
+                                   periodic_mixed_mesh_2d,
+                                   periodic_prism_mesh, periodic_quad_mesh,
                                    periodic_tet_mesh)
     from hifiles_tpu_torch.solver.volume import volume_tdisf
     p = RunInput.from_deck(os.path.join(DECKS, "input_vortex_parity"))
@@ -682,17 +808,34 @@ def phase_reference(counts):
     if not diff.max() < 1e-10:
         raise AssertionError(f"vortex L2 error off the reference: {err}")
 
-    p = RunInput.from_deck(os.path.join(DECKS, "input_tet_overint_25"))
-    s = Solver(p, periodic_tet_mesh(3, 3, 3), device="cuda",
-               dtype=torch.float64)
-    res = s.residual_norm(1, last_stage_residual(s, 25, p.dt))
-    gold = np.asarray(TET_OVERINT_GOLD)
-    tol = 2e-4 * np.maximum(0.05, gold)
-    log(f"reference tet over-int 3^3 p=3 f64 25 steps: L1 row "
-        f"[{', '.join(f'{r:.8e}' for r in res)}], |diff| / tol "
-        f"{(np.abs(res - gold) / tol).max():.3f}")
-    if not np.all(np.abs(res - gold) < tol):
-        raise AssertionError(f"tet over-int row off the reference: {res}")
+    pi = np.pi
+    rows = [
+        ("tet over-int 3^3", "input_tet_overint_25",
+         lambda: periodic_tet_mesh(3, 3, 3), 25, TET_OVERINT_GOLD,
+         lambda g: 2e-4 * np.maximum(0.05, g)),
+        ("tri+quad over-int 6^2", "input_mix2d_overint_25",
+         lambda: periodic_mixed_mesh_2d(6, 6, -pi, pi, -pi, pi), 25,
+         MIX2D_OVERINT_GOLD, lambda g: 2e-3 * np.maximum(0.05, g)),
+        ("prism over-int 4^3", "input_pri_overint_25",
+         lambda: periodic_prism_mesh(4, 4, 4), 25, PRISM_OVERINT_GOLD,
+         lambda g: 2e-4 * np.maximum(0.05, g)),
+        ("prism/tet wall-model channel 4x4x(2+2)", "input_prism_tet_wm_25",
+         lambda: channel_prism_tet_mesh(4, 4, 2, 2, x1=2.0, y1=1.0, z1=1.0),
+         100, PRISM_TET_WM_GOLD, lambda g: np.full_like(g, 1e-5)),
+    ]
+    for name, deck, mesh, n_steps, gold, tol in rows:
+        p = RunInput.from_deck(os.path.join(DECKS, deck))
+        s = make_solver(p, mesh(), name, "cuda", torch.float64)
+        t0 = time.perf_counter()
+        res = s.residual_norm(1, last_stage_residual(s, n_steps, p.dt))
+        gold = np.asarray(gold)
+        tol = tol(gold)
+        log(f"reference {name} p={p.order} f64 {n_steps} steps "
+            f"({time.perf_counter() - t0:.2f} s): L1 row "
+            f"[{', '.join(f'{r:.8e}' for r in res)}], |diff| / tol "
+            f"{(np.abs(res - gold) / tol).max():.3f}")
+        if not np.all(np.abs(res - gold) < tol):
+            raise AssertionError(f"{name} row off the reference: {res}")
 
 
 def slice_gate(name):
@@ -715,13 +858,13 @@ def phase_slice(card, name, counts):
     t0 = time.perf_counter()
     s = make_solver(p, mesh, name, "cuda", torch.float32)
     torch.cuda.synchronize()
-    dof = s.block.n_eles * s.ops.n_upts
+    dof = s.dof
     log(f"slice {name}: setup {time.perf_counter() - t0:.2f} s "
-        f"(E={s.block.n_eles}, U={s.ops.n_upts}, F={s.n_fields}, "
-        f"d={s.n_dims}, DOF {dof})")
+        f"({blocks_of(s)}, F={s.n_fields}, d={s.n_dims}, DOF {dof})")
 
     volume_tdisf.launches = 0
     volume_tdisf.by_variant.clear()
+    volume_tdisf.by_shape.clear()
     s.run(10, dt=p.dt)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -731,6 +874,7 @@ def phase_slice(card, name, counts):
     row = s.residual_norm(1)
     launches = volume_tdisf.launches
     counts[name] = dict(volume_tdisf.by_variant)
+    counts[name + ":blocks"] = dict(volume_tdisf.by_shape)
 
     gold, rtol = slice_gate(name)
     rel = np.abs(row - gold) / np.abs(gold)
@@ -740,10 +884,14 @@ def phase_slice(card, name, counts):
         f"(gate {rtol})")
     log(f"slice {name} rate {dof * s.n_stages * 10 / wall:.6e} "
         f"DOF*RK-stage/s over 10 steps ({wall:.4f} s) on [{card}]")
-    log(f"slice {name} launches {launches} {counts[name]}")
+    log(f"slice {name} launches {launches} {counts[name]}; by block "
+        + ", ".join(f"U={U} E={E}: {n}" for (_, U, E), n in
+                    counts[name + ":blocks"].items()))
     if not (np.isfinite(row).all() and np.all(rel < rtol)):
         raise AssertionError(f"{name} residual row off the golden: {row}")
-    need = 10 * 2 * s.n_stages * (2 if name == "overint" else 1)
+    # every block's volume stage on every RK stage of the 20 steps
+    need = (10 * 2 * s.n_stages * len(s._blocks)
+            * (2 if name == "overint" else 1))
     if launches < need:
         raise AssertionError(f"volume_tdisf launched {launches} times on "
                              f"the {name} slice, expected >= {need}")
@@ -781,8 +929,7 @@ def phase_channel(card, counts):
     launches = volume_tdisf.launches
     counts["channel"] = dict(volume_tdisf.by_variant)
 
-    dof = mesh.n_cells * (p.order + 1) ** 3
-    rate = dof * s.n_stages * 10 / wall
+    rate = s.dof * s.n_stages * 10 / wall
     gold = np.asarray(bench.GOLDENS["channel"])
     rel = np.abs(row - gold) / np.abs(gold)
     mflux, ubulk, bf = s.inflow_massflux()
@@ -835,7 +982,7 @@ def phase_rates(card, runs):
             t0 = time.perf_counter()
             s.run(10, dt=p.dt)
             torch.cuda.synchronize()
-            rates[name].append(s.block.n_eles * s.ops.n_upts * s.n_stages
+            rates[name].append(s.dof * s.n_stages
                                * 10 / (time.perf_counter() - t0))
     for name, (s, p) in runs.items():
         q1, med, q3 = np.percentile(rates[name], [25, 50, 75])
@@ -860,7 +1007,7 @@ def main():
     # `plain` beside the new slices: the same host in the same turns
     runs = {"plain": runs["plain"]}
     runs.update((name, phase_slice(card, name, counts))
-                for name in NEW_SLICES)
+                for name in NEW_SLICES + MIXED_SLICES)
     phase_rates(card, runs)
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "hifiles_tpu")]
@@ -869,7 +1016,11 @@ def main():
     import torch
     kernels = []
     for v in VARIANTS:
-        n = counts[v["path"]].get(v["key"], 0)
+        if v.get("per_block"):
+            n = counts[v["path"] + ":blocks"].get(
+                (v["key"], v["U"], v["E"]), 0)
+        else:
+            n = counts[v["path"]].get(v["key"], 0)
         if n == 0:
             raise AssertionError(f"volume_tdisf[{v['name']}] ({v['key']}) "
                                  f"not launched on the {v['path']} run")

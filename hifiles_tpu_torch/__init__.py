@@ -20,10 +20,14 @@ HEX = 4
 CTYPE_NAMES = {TRI: "tri", QUAD: "quad", TET: "tet", PRISM: "prism", HEX: "hex"}
 
 from .config import RunInput  # noqa: E402
-from .mesh import (MeshData, channel_hex_mesh, channel_quad_mesh,  # noqa: E402
-                   periodic_hex_mesh, periodic_quad_mesh, periodic_tet_mesh)
-from .solver import Solver  # noqa: E402
+from .mesh import (MeshData, channel_hex_mesh,  # noqa: E402
+                   channel_prism_tet_mesh, channel_quad_mesh,
+                   periodic_hex_mesh, periodic_mixed_mesh_2d,
+                   periodic_prism_mesh, periodic_quad_mesh, periodic_tet_mesh)
+from .solver import MixedSolver, Solver  # noqa: E402
 
 __all__ = ["CTYPE_NAMES", "HEX", "PRISM", "QUAD", "TET", "TRI", "MeshData",
-           "RunInput", "Solver", "channel_hex_mesh", "channel_quad_mesh",
-           "periodic_hex_mesh", "periodic_quad_mesh", "periodic_tet_mesh"]
+           "MixedSolver", "RunInput", "Solver", "channel_hex_mesh",
+           "channel_prism_tet_mesh", "channel_quad_mesh", "periodic_hex_mesh",
+           "periodic_mixed_mesh_2d", "periodic_prism_mesh",
+           "periodic_quad_mesh", "periodic_tet_mesh"]

@@ -1,7 +1,8 @@
 """Exchange between the JAX package and the port.
 
-The JAX solver exposes its state as (E, U, F) arrays; the port steps an
-elements-minor (U, F, E) state.  ``run_input_from`` and ``mesh_from`` turn
+The JAX solver exposes its state as (E, U, F) arrays, and its MixedSolver
+as a tuple of (E_t, U_t, F) arrays, one per element type in ``sels``
+order; the port steps elements-minor (U, F, E) states.  ``run_input_from`` and ``mesh_from`` turn
 the JAX package's RunInput and MeshData into the port's own copies of those
 types, attribute by attribute (numpy arrays copied), without importing the
 JAX package: the port's Solver takes only its own types.
@@ -72,3 +73,14 @@ def ufe_to_euf(t):
 def state_to_numpy(u_ufe, reg_ufe):
     """(U, F, E) tensors -> (E, U, F) numpy state and RK register."""
     return ufe_to_euf(u_ufe), ufe_to_euf(reg_ufe)
+
+
+def states_from_numpy(us, device, dtype):
+    """A mixed state, (E_t, U_t, F) arrays per element type (e.g. the JAX
+    MixedSolver's ``u``) -> a tuple of (U_t, F, E_t) tensors."""
+    return tuple(euf_to_ufe(a, device, dtype) for a in us)
+
+
+def states_to_numpy(ts):
+    """(U_t, F, E_t) tensors per element type -> (E_t, U_t, F) numpy."""
+    return tuple(ufe_to_euf(t) for t in ts)

@@ -3,12 +3,16 @@ gradients for the Navier-Stokes BC kinds (ref:src/bdy_inters.cpp:340-1019
 set_boundary_conditions, :1138-1188 set_boundary_gradients).
 
 Port of hifiles_tpu/solver/bc.py::make_bc_functions (:76-445).  The residual
-passes the state at the boundary flux points as F planes of shape
-(nfp, Fb) and the outward normals as d planes; the per-group parameters are
-per-face planes (1, Fb) that broadcast over the face points.  As in the JAX
+passes the state at the boundary flux points as F planes and the outward
+normals as d planes; the per-group parameters are planes (1, Fb) with one
+column per plane column, which broadcast over the plane's rows.  On one
+block the planes are (nfp, Fb), a column per face; on a mixed mesh, whose
+boundary faces differ in their point counts, they are (1, Nb), a column
+per boundary point, each point carrying its face's group and wall-model
+distance.  As in the JAX
 package, a candidate ghost state is evaluated for every flag present on the
 block and the candidates are combined with masks; a flag that covers every
-boundary face takes its candidate without a mask.
+boundary column takes its candidate without a mask.
 
 Unlike the JAX closures, which each rebuild the ghost states they need, the
 functions here take the sol_spec 0 ghost state and the LDG common solution
@@ -108,17 +112,19 @@ def not_ported(run_input: RunInput, flags) -> list:
 
 
 class BCFunctions:
-    """The boundary side of the face stage for one element block.
+    """The boundary side of the face stage.
 
-    Built by ``make_bc_functions``; every method takes and returns lists of
-    planes.  ``wm_tables`` holds (wm_ele, wm_upt) index tensors and the
-    wm_dist plane (1, Fb) when wall models are active, else None."""
+    ``bcid`` gives the group of each plane column (a face of a block, or a
+    boundary point of a mixed mesh).  Every method takes and returns lists
+    of planes.  ``wm_tables`` holds (wm_ele, wm_upt) index tensors and the
+    wm_dist plane (1, Fb) per column when wall models are active, else
+    None; it is built from the numpy (wm_ele, wm_upt, wm_dist) given."""
 
-    def __init__(self, run_input: RunInput, block, rcfg, device, dtype):
-        self.d = d = block.ops.n_dims
+    def __init__(self, run_input: RunInput, bcid, n_dims, rcfg, device,
+                 dtype, wm_tables=None):
+        self.d = d = n_dims
         self.rcfg = rcfg
         self.gamma = rcfg.gamma
-        bcid = block.bdy_bcid
         P = _pack_params(run_input, bcid, d)
         self.flags = sorted(set(int(f) for f in np.unique(P["flag"])))
         self.missing = not_ported(run_input, self.flags)
@@ -160,8 +166,8 @@ class BCFunctions:
         self.wall_model = run_input.wall_model
         self.wm_tables = None
         self.wm_flags = []
-        if np.any(P["use_wm"] > 0) and run_input.wall_model > 0:
-            wm_ele, wm_upt, wm_dist = build_wm_tables(block, P["use_wm"])
+        if wall_models_on(run_input, bcid):
+            wm_ele, wm_upt, wm_dist = wm_tables
             self.wm_tables = (torch.as_tensor(wm_ele, device=device),
                               torch.as_tensor(wm_upt, device=device),
                               plane(wm_dist))
@@ -449,7 +455,26 @@ class BCFunctions:
         return fn
 
 
+def use_wm_of(run_input: RunInput, bcid) -> np.ndarray:
+    """The use_wm flag of each boundary column's group."""
+    return np.array([b.use_wm for b in run_input.bc_list],
+                    dtype=np.float64)[np.asarray(bcid)]
+
+
+def wall_models_on(run_input: RunInput, bcid) -> bool:
+    """Whether a wall model runs on any of the boundary columns ``bcid``
+    (bc.py:390-391 of the JAX package)."""
+    return bool(run_input.wall_model > 0 and len(bcid)
+                and np.any(use_wm_of(run_input, bcid) > 0))
+
+
 def make_bc_functions(run_input: RunInput, block, rcfg, device,
                       dtype) -> BCFunctions:
-    """The boundary functions of one element block on ``device``."""
-    return BCFunctions(run_input, block, rcfg, device, dtype)
+    """The boundary functions of one element block on ``device``: a plane
+    column per boundary face."""
+    bcid = block.bdy_bcid
+    wm = None
+    if wall_models_on(run_input, bcid):
+        wm = build_wm_tables(block, use_wm_of(run_input, bcid))
+    return BCFunctions(run_input, bcid, block.ops.n_dims, rcfg, device,
+                       dtype, wm)

@@ -1,9 +1,9 @@
 """Element blocks: batched geometry transforms + face gather tables.
 
-Copied from hifiles_tpu/solver/elements.py (lines 27-447 and the corner
-helpers at 618-636) with only the imports rewired to the port's own
-copies of the host layers (mesh/, ops/, native/).  The mixed-mesh tables
-(MixedMeshTables, build_mixed_blocks) are not copied yet.
+Copied from hifiles_tpu/solver/elements.py (lines 27-636: the single-type
+blocks, the mixed-mesh tables MixedMeshTables, mixed_type_selections and
+build_mixed_blocks, and the corner helpers) with only the imports rewired
+to the port's own copies of the host layers (mesh/, ops/, native/).
 
 This replaces the reference's eles/inters pointer machinery
 (ref:src/eles.cpp:4015-4393 set_transforms, ref:src/int_inters.cpp:67-121
@@ -448,6 +448,176 @@ def build_element_block(mesh: MeshData, conn: FaceConnectivity,
         int_mask=int_mask, bdy_mask=bdy_mask,
         slot_src=slot_src, slot_sign=slot_sign,
         pos_vol_cubpts=pos_cub, detjac_vol_cubpts=detjac_cub, h_ref=h_ref)
+
+
+@dataclasses.dataclass
+class MixedMeshTables:
+    """Face tables for a mixed-type mesh in a GLOBAL slot space.
+
+    The global slot of flux point j on local face locf of global element e is
+      slot_off[ctype[e]] + loc_idx[e] * Pf_ct + fpt_off_ct[locf] + j
+    so per-type flux-point data concatenated in ``cts`` order lines up with
+    the global face gather tables.  This generalizes the reference's
+    per-pairing inters machinery (ref:src/int_inters.cpp:67-121,
+    ref:src/geometry.cpp:250-420 which wires tris/quads/... into shared
+    inters objects) to one flat index space.
+    """
+    cts: list                     # element types present, ascending
+    blocks: dict                  # ct -> ElementBlock (no local face tables)
+    sels: dict                    # ct -> global element ids of that type
+    slot_off: dict                # ct -> global slot offset of the block
+    n_slots: int
+    # global face-side geometry (concat of per-block flats, cts order)
+    pos_fpts: np.ndarray          # (S, d)
+    tdA_fpts: np.ndarray          # (S,)
+    norm_fpts: np.ndarray         # (S, d)
+    detjac_fpts: np.ndarray       # (S,)
+    jginv_fpts: np.ndarray        # (S, d, d)
+    # global face tables (same semantics as ElementBlock's)
+    int_slot_l: np.ndarray
+    int_slot_r: np.ndarray
+    int_mask: np.ndarray
+    bdy_slot: np.ndarray
+    bdy_bcid: np.ndarray
+    bdy_mask: np.ndarray
+    slot_src: np.ndarray
+    slot_sign: np.ndarray
+
+
+def mixed_type_selections(mesh: MeshData, conn: FaceConnectivity) -> dict:
+    """Per-type global element ids, ordered so STRUCTURALLY IDENTICAL
+    elements (same multiset of face-pairing patterns) are contiguous.
+
+    The SoA face groups key on those patterns; with global-cell ordering
+    the types interleave (e.g. upper/lower split tris alternate) and
+    every group's element gather is strided.  Sorting each type by a
+    face-pattern signature (side, own locf, partner locf, partner type /
+    bc id — stable, so ties keep mesh order) turns the group gathers
+    into contiguous slices.  Pure renumbering: sels stays the single
+    source of truth for state/IO order, physics unchanged."""
+    nfmax = max(int(n) for n in
+                np.concatenate([conn.int_locf_l, conn.int_locf_r,
+                                conn.bdy_locf, [0]])) + 1
+    C = mesh.n_cells
+    codes = np.full((C, nfmax), -1, dtype=np.int64)
+    cnt = np.zeros(C, dtype=np.int64)
+
+    def add(ele, code):
+        ele = np.asarray(ele)
+        for e, c in zip(ele, np.asarray(code)):
+            codes[e, cnt[e]] = c
+            cnt[e] += 1
+
+    ct_of = mesh.ctype
+    enc = lambda side, lf_s, lf_o, rot, other: (
+        (((side * 64 + lf_s) * 64 + lf_o) * 64
+         + np.minimum(rot, 63)) * 4096 + other)
+    add(conn.int_ele_l, enc(0, conn.int_locf_l, conn.int_locf_r,
+                            conn.int_rot, ct_of[conn.int_ele_r]))
+    add(conn.int_ele_r, enc(1, conn.int_locf_r, conn.int_locf_l,
+                            conn.int_rot, ct_of[conn.int_ele_l]))
+    if conn.bdy_ele.size:
+        add(conn.bdy_ele, enc(2, conn.bdy_locf, 0, 0,
+                              np.minimum(conn.bdy_bcid, 4095)))
+    codes = -np.sort(-codes, axis=1)            # canonical per-element order
+    sels = {}
+    for ct in sorted(int(c) for c in np.unique(mesh.ctype)):
+        sel = np.where(mesh.ctype == ct)[0]
+        # lexsort: LAST key is primary -> signature first, mesh order ties
+        order = np.lexsort((sel,) + tuple(codes[sel, k]
+                                          for k in reversed(range(nfmax))))
+        sels[ct] = sel[order]
+    return sels
+
+
+def build_mixed_blocks(mesh: MeshData, conn: FaceConnectivity,
+                       ops_by_ct: dict, check_geometry: bool = True,
+                       over_int_order: int | None = None) -> MixedMeshTables:
+    """Per-type geometry blocks + global-slot face tables for a mixed mesh."""
+    cts = sorted(int(c) for c in np.unique(mesh.ctype))
+    blocks, sels, slot_off = {}, {}, {}
+    off = 0
+    loc_idx = np.zeros(mesh.n_cells, dtype=np.int64)
+    sig_sels = mixed_type_selections(mesh, conn)
+    for ct in cts:
+        sel = sig_sels[ct]
+        sels[ct] = sel
+        loc_idx[sel] = np.arange(sel.size)
+        blocks[ct] = build_element_block(
+            mesh, None, ops_by_ct[ct], check_geometry=check_geometry,
+            over_int_order=over_int_order, sel=sel, face_tables=False)
+        slot_off[ct] = off
+        off += sel.size * ops_by_ct[ct].n_fpts
+    S = off
+    d = mesh.n_dims
+
+    pos_fpts = np.concatenate([blocks[ct].pos_fpts for ct in cts])
+    tdA_fpts = np.concatenate([blocks[ct].tdA_fpts for ct in cts])
+    norm_fpts = np.concatenate([blocks[ct].norm_fpts for ct in cts])
+    detjac_fpts = np.concatenate([blocks[ct].detjac_fpts for ct in cts])
+    jginv_fpts = np.concatenate([blocks[ct].jginv_fpts for ct in cts])
+
+    fpt_off = {ct: np.concatenate([[0],
+                                   np.cumsum(ops_by_ct[ct].n_fpts_per_face)])
+               for ct in cts}
+    nfp_max = max(int(ops_by_ct[ct].n_fpts_per_face.max()) for ct in cts)
+
+    def slots(ele, locf):
+        ct = int(mesh.ctype[ele])
+        ops = ops_by_ct[ct]
+        nfp = int(ops.n_fpts_per_face[locf])
+        return (slot_off[ct] + loc_idx[ele] * ops.n_fpts
+                + fpt_off[ct][locf] + np.arange(nfp))
+
+    Fi = conn.int_ele_l.size
+    int_slot_l = np.zeros((Fi, nfp_max), dtype=np.int64)
+    int_slot_r = np.zeros((Fi, nfp_max), dtype=np.int64)
+    int_mask = np.zeros((Fi, nfp_max))
+    sls = [slots(conn.int_ele_l[f], conn.int_locf_l[f]) for f in range(Fi)]
+    srs = [slots(conn.int_ele_r[f], conn.int_locf_r[f]) for f in range(Fi)]
+    for f in range(Fi):
+        if sls[f].size != srs[f].size:
+            raise AssertionError(
+                "face fpt-count mismatch across element types; use matching "
+                "face point sets (fpts_type) on both types")
+    perms = match_fpts_grouped(pos_fpts, sls, srs)
+    for f in range(Fi):
+        sl, sr0 = sls[f], srs[f]
+        int_slot_l[f, :sl.size] = sl
+        int_slot_r[f, :sl.size] = sr0[perms[f]]
+        int_mask[f, :sl.size] = 1.0
+
+    Fb = conn.bdy_ele.size
+    bdy_slot = np.zeros((Fb, nfp_max), dtype=np.int64)
+    bdy_mask = np.zeros((Fb, nfp_max))
+    for f in range(Fb):
+        sl = slots(conn.bdy_ele[f], conn.bdy_locf[f])
+        bdy_slot[f, :sl.size] = sl
+        bdy_mask[f, :sl.size] = 1.0
+
+    slot_src = -np.ones(S, dtype=np.int64)
+    slot_sign = np.zeros(S)
+    base = np.arange(Fi * nfp_max).reshape(Fi, nfp_max)
+    ml = int_mask > 0
+    slot_src[int_slot_l[ml]] = base[ml]
+    slot_sign[int_slot_l[ml]] = 1.0
+    slot_src[int_slot_r[ml]] = base[ml]
+    slot_sign[int_slot_r[ml]] = -1.0
+    if Fb:
+        bbase = Fi * nfp_max + np.arange(Fb * nfp_max).reshape(Fb, nfp_max)
+        mb = bdy_mask > 0
+        slot_src[bdy_slot[mb]] = bbase[mb]
+        slot_sign[bdy_slot[mb]] = 1.0
+    if np.any(slot_src < 0):
+        raise AssertionError("uncovered flux-point slots in mixed tables")
+
+    return MixedMeshTables(
+        cts=cts, blocks=blocks, sels=sels, slot_off=slot_off, n_slots=S,
+        pos_fpts=pos_fpts, tdA_fpts=tdA_fpts, norm_fpts=norm_fpts,
+        detjac_fpts=detjac_fpts, jginv_fpts=jginv_fpts,
+        int_slot_l=int_slot_l, int_slot_r=int_slot_r, int_mask=int_mask,
+        bdy_slot=bdy_slot, bdy_bcid=conn.bdy_bcid.copy(), bdy_mask=bdy_mask,
+        slot_src=slot_src, slot_sign=slot_sign)
 
 
 def _quad_corners(n_spts):

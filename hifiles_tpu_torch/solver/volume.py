@@ -346,9 +346,10 @@ def volume_tdisf(u, grad, jg, prm: VolumeParams, delta=None, wdist=None,
                  extra=None):
     """Volume stage: the CUDA kernel for CUDA tensors, the plain version
     for CPU tensors (arguments as volume_tdisf_ref).
-    ``volume_tdisf.launches`` counts the kernel launches and
-    ``volume_tdisf.by_variant`` splits them by ``variant`` (CPU calls do
-    not count)."""
+    ``volume_tdisf.launches`` counts the kernel launches,
+    ``volume_tdisf.by_variant`` splits them by ``variant`` and
+    ``volume_tdisf.by_shape`` by (variant, U, E), which tells apart the
+    blocks of a mixed mesh (CPU calls do not count)."""
     _check(u, grad, jg, prm, delta, wdist, extra)
     if u.device.type == "cpu":
         return volume_tdisf_ref(u, grad, jg, prm, delta, wdist, extra)
@@ -378,10 +379,13 @@ def volume_tdisf(u, grad, jg, prm: VolumeParams, delta=None, wdist=None,
     if rc != 0:
         raise RuntimeError(f"volume_tdisf kernel launch failed: CUDA error "
                            f"{rc}")
+    key = variant(prm, F, extra is not None, D)
     volume_tdisf.launches += 1
-    volume_tdisf.by_variant[variant(prm, F, extra is not None, D)] += 1
+    volume_tdisf.by_variant[key] += 1
+    volume_tdisf.by_shape[(key, U, E)] += 1
     return out
 
 
 volume_tdisf.launches = 0
 volume_tdisf.by_variant = collections.Counter()
+volume_tdisf.by_shape = collections.Counter()

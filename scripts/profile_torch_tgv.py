@@ -2,12 +2,22 @@
 """Where the time goes in one of the port's bench cases on one GPU.
 
   python3 scripts/profile_torch_tgv.py [--config NAME] [--steps N] [--out DIR]
+  python3 scripts/profile_torch_tgv.py --config NAME --count-ops
 
 Runs a case of bench.py through hifiles_tpu_torch in f32: --config plain,
 smag, overint, rans or shock (TGV p=4 on 16^3 periodic hexes; default
 plain), channel (bench.run_channel: forced plane-channel LES, 16^3 hexes,
 p=4), quad (bench.mixed_input's 2-D viscous vortex, p=4, on 96^2 periodic
-quads) or tet (the TGV deck, p=4, on 12^3 periodic Kuhn tets).  Warms up
+quads), tet (the TGV deck, p=4, on 12^3 periodic Kuhn tets), mixed
+(bench.run_mixed: the vortex on the 96^2 tri+quad box) or mixed3d
+(bench.run_mixed3d: the wall-modelled prism/tet LES channel, p=2).
+
+With --count-ops it runs one step on the CPU (no GPU needed), on a small
+mesh of the same kind (the count does not depend on the element count),
+and prints the kernel launches per RK stage the step would make on the
+card: every aten op it dispatches that writes memory (views and empty
+allocations launch nothing), the plain version of the volume kernel
+counted as its one launch.  Otherwise it needs CUDA: it warms up
 2 steps, then traces N steps (default 2) with torch.profiler.  Prints the device time per kernel class (GEMM, the hand
 volume kernel, gathers/stores, other elementwise, and the boundary stage:
 every kernel launched inside the boundary functions), the device busy share
@@ -93,37 +103,93 @@ def breakdown(events):
     return by_class, launches, syncs, rows
 
 
+# --count-ops: a small mesh of each case's kind, from the port's module
+# ``m`` (the TGV cases: 2^3 hexes)
+SMALL_MESHES = {
+    "channel": lambda m: m.channel_hex_mesh(2, 2, 2),
+    "quad": lambda m: m.periodic_quad_mesh(8, 8, -10, 10, -10, 10),
+    "tet": lambda m: m.periodic_tet_mesh(2, 2, 2),
+    "mixed": lambda m: m.periodic_mixed_mesh_2d(8, 8, -10, 10, -10, 10),
+    "mixed3d": lambda m: m.channel_prism_tet_mesh(4, 4, 2, 2, x1=2.0, y1=1.0,
+                                                  z1=1.0),
+}
+
+
+def count_ops(s, dt):
+    """Kernel launches per RK stage of one step of solver ``s`` on the CPU
+    (see the module docstring)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    import hifiles_tpu_torch.solver.volume as volume
+    silent = ("empty", "empty_like", "empty_strided", "_local_scalar_dense")
+
+    class Count(TorchDispatchMode):
+        n = 0
+        on = True
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            ret = func._schema.returns
+            alias = ret[0].alias_info if ret else None
+            if (Count.on and func.overloadpacket.__name__ not in silent
+                    and (alias is None or alias.is_write)):
+                Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    plain = volume.volume_tdisf_ref
+
+    def one_launch(*args, **kwargs):
+        Count.n += 1
+        Count.on = False
+        try:
+            return plain(*args, **kwargs)
+        finally:
+            Count.on = True
+    volume.volume_tdisf_ref = one_launch
+    try:
+        with Count():
+            s.run(1, dt=dt)
+    finally:
+        volume.volume_tdisf_ref = plain
+    return Count.n / s.n_stages
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", default="plain")
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--out", default=os.path.join(ROOT, "profile_out"))
+    ap.add_argument("--count-ops", action="store_true")
     args = ap.parse_args()
 
     import torch
-    if not torch.cuda.is_available():
+    if not args.count_ops and not torch.cuda.is_available():
         raise SystemExit("profile_torch_tgv: CUDA is not available")
     sys.path.insert(0, ROOT)
-    from chip_smoke import (NEW_SLICES, SLICES, channel_input, make_solver,
-                            slice_case)
-    from hifiles_tpu_torch import channel_hex_mesh
+    from chip_smoke import (MIXED_SLICES, NEW_SLICES, SLICES, channel_input,
+                            make_solver, slice_case)
+    import hifiles_tpu_torch as ht
     from torch.profiler import ProfilerActivity, profile
 
+    names = SLICES + ["channel"] + NEW_SLICES + MIXED_SLICES
+    if args.config not in names:
+        raise SystemExit(f"profile_torch_tgv: --config one of {names}")
+    if args.config == "channel":
+        p, mesh = channel_input(order=4), ht.channel_hex_mesh(16, 16, 16)
+    else:
+        p, mesh = slice_case(args.config)
+    if args.count_ops:
+        mesh = SMALL_MESHES.get(args.config,
+                                lambda m: m.periodic_hex_mesh(2, 2, 2))(ht)
+    s = make_solver(p, mesh, args.config,
+                    "cpu" if args.count_ops else "cuda", torch.float32)
+    if args.count_ops:
+        print(f"{args.config}: {count_ops(s, p.dt):.1f} launches per RK "
+              "stage (aten ops dispatched on the CPU)")
+        return
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
     print(card)
-    if args.config == "channel":
-        p = channel_input(order=4)
-        s = make_solver(p, channel_hex_mesh(16, 16, 16), args.config,
-                        "cuda", torch.float32)
-    elif args.config in SLICES + NEW_SLICES:
-        p, mesh = slice_case(args.config)
-        s = make_solver(p, mesh, args.config, "cuda", torch.float32)
-    else:
-        raise SystemExit(f"profile_torch_tgv: --config one of "
-                         f"{SLICES + ['channel'] + NEW_SLICES}")
     if s._bc_fns is not None:
         annotate_boundary(s._bc_fns)
     s.run(2, dt=p.dt)

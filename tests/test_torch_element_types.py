@@ -30,11 +30,11 @@ import hifiles_tpu_torch
 from hifiles_tpu_torch.convert import mesh_from, run_input_from
 from hifiles_tpu_torch.ops.stabilization import (make_shock_capture_soa,
                                                  persson_top_mode_mask)
-from hifiles_tpu_torch.solver.step import RK45_A, RK45_B
 
 sys.path.insert(0, os.path.dirname(__file__))
 sys.path.insert(0, os.path.dirname(os.path.dirname(__file__)))
-from chip_smoke import periodic_tri_mesh  # noqa: E402
+from chip_smoke import (last_stage_residual,  # noqa: E402
+                        periodic_tri_mesh)
 from test_face_path import tgv_input  # noqa: E402
 from test_rans_viscous_bc import _rans_channel_input  # noqa: E402
 from test_regression_reference import (TET_OVERINT_GOLD,  # noqa: E402
@@ -245,19 +245,6 @@ def test_vortex_l2_matches_reference_golden():
     err = np.sqrt(s.compute_error(2)[0])
     assert np.abs(err - np.asarray(VORTEX_L2_GOLD)).max() < 1e-10, \
         (list(err), VORTEX_L2_GOLD)
-
-
-def last_stage_residual(s, n_steps, dt):
-    """The last RK45 stage's residual of step n_steps, as
-    tests/test_regression_reference.py:108-125 computes it, with the port's
-    RK45 coefficients: what the reference's residual monitor reports."""
-    s.run(n_steps - 1, dt=dt)
-    u, r = s.u_soa.clone(), torch.zeros_like(s.u_soa)
-    for a, b in zip(RK45_A, RK45_B):
-        rhs = s.residual_soa(u)
-        r = a * r + dt * rhs
-        u = u + b * r
-    return rhs.permute(2, 0, 1).numpy()
 
 
 def test_tet_over_int_matches_reference_golden():

@@ -127,7 +127,9 @@ def test_set_state_takes_featured_carry():
 @pytest.mark.parametrize("adv_type", [0, 1, 2, 3, 4])
 def test_step_source_matches_jax(adv_type):
     """One step of each RK scheme with a source column (the body force's
-    (F, 1) shape) added to a linear rhs, against solver/step.py."""
+    (F, 1) shape) added to a linear rhs, against solver/step.py's
+    source_fn: the port's solvers add the source to the stage rhs they
+    hand the step."""
     from hifiles_tpu.solver.step import make_step_fn as jax_step_fn
     from hifiles_tpu_torch.solver.step import make_step_fn
     rng = np.random.default_rng(6)
@@ -139,8 +141,8 @@ def test_step_source_matches_jax(adv_type):
         jnp.asarray(u0), jnp.asarray(reg0), dt)
     ct, st = torch.from_numpy(c), torch.from_numpy(src)
     ut, rt = torch.from_numpy(u0.copy()), torch.from_numpy(reg0.copy())
-    ut2, rt2 = make_step_fn(lambda u: -0.5 * u + ct, adv_type,
-                            source_fn=lambda u: st)(ut, rt, dt)
+    ut2, rt2 = make_step_fn(lambda u: (-0.5 * u + ct).add_(st),
+                            adv_type)(ut, rt, dt)
     assert ut2 is ut
     np.testing.assert_allclose(ut.numpy(), np.asarray(uj), rtol=0,
                                atol=1e-14)

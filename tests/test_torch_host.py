@@ -91,8 +91,9 @@ import numpy as np
 import torch
 torch.set_num_threads(1)
 import hifiles_tpu_torch as ht
-from chip_smoke import (channel_input, make_solver, periodic_tri_mesh,
-                        tgv_input, vortex_input)
+from chip_smoke import (channel_input, make_solver, mixed_wall_mesh,
+                        periodic_tri_mesh, quad_wall_input, tgv_input,
+                        vortex_input)
 for name in ("plain", "smag", "overint", "rans", "shock"):
     p = tgv_input(order=2, config=name)
     s = make_solver(p, ht.periodic_hex_mesh(3, 3, 3), name, "cpu",
@@ -115,6 +116,17 @@ for mesh, p in ((ht.periodic_quad_mesh(3, 3, -10, 10, -10, 10),
     s = ht.Solver(p, mesh, device="cpu", dtype=torch.float64)
     s.run(1, dt=p.dt)
     assert np.isfinite(s.residual_norm(1)).all(), int(mesh.ctype[0])
+for mesh, p in ((ht.periodic_mixed_mesh_2d(3, 3, -10, 10, -10, 10),
+                 vortex_input(order=2)),
+                (mixed_wall_mesh(4, 2), quad_wall_input(wall_model=1)),
+                (ht.channel_prism_tet_mesh(2, 2, 1, 1), ht.RunInput.from_deck(
+                    sys.argv[1] + "/tests/decks/input_prism_tet_wm_25")),
+                (ht.periodic_prism_mesh(2, 2, 2), tgv_input(order=2))):
+    s = ht.MixedSolver(p, mesh, device="cpu", dtype=torch.float64)
+    s.run(1, dt=p.dt)
+    assert np.isfinite(s.residual_norm(1)).all(), s.cts
+assert {"hifiles_tpu_torch.solver.multiblock",
+        "hifiles_tpu_torch.solver.residual_mixed_soa"} <= set(sys.modules)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "hifiles_tpu"))
 assert not loaded, loaded
@@ -125,8 +137,10 @@ print("NO_JAX_OK")
 def test_port_runs_with_jax_blocked():
     """The port builds and steps the plain, smag, overint, rans and shock
     Solvers, the walled, forced, averaged channel (with and without a wall
-    model), and a quad, a tri and a tet Solver, with every import of JAX
-    and of the JAX package hifiles_tpu refused."""
+    model), a quad, a tri and a tet Solver, and MixedSolvers on a tri+quad
+    box, a wall-modelled tri+quad channel, a wall-modelled prism/tet
+    channel and a prism box, with every import of JAX and of the JAX
+    package hifiles_tpu refused."""
     env = dict(os.environ, OMP_NUM_THREADS="1")
     res = subprocess.run([sys.executable, "-c", _NO_JAX, ROOT],
                          capture_output=True, text=True, env=env,

@@ -239,3 +239,70 @@ def test_gmsh_reader_identical(tmp_path):
     a, b = jax_read(str(path)), read_gmsh(str(path))
     assert a.n_cells == 3 and (a.bc_id >= 0).sum() == 3
     assert same(a, b, "gmsh") >= 5
+
+
+# the meshes of tests/test_mixed_soa.py: the tri+quad box and the
+# wall-modelled prism/tet channel, with over-integration geometry on the
+# box (p=2 both)
+MIXED_MESHES = {
+    "tri_quad": (lambda g: g.periodic_mixed_mesh_2d(6, 6, -10, 10, -10, 10),
+                 {0: jparams.CYCLIC}, 4),
+    "prism_tet": (lambda g: g.channel_prism_tet_mesh(3, 2, 2, 2, x1=2.0,
+                                                     y1=1.0, z1=1.0),
+                  None, None),
+}
+
+
+def mixed_tables(gen, build_faces_fn, elements, ops_mod, case):
+    """(mixed_type_selections, build_mixed_blocks) of one package."""
+    make, flags, over = MIXED_MESHES[case]
+    mesh = make(gen)
+    if flags is None:
+        flags = {i: (jparams.CYCLIC if n == "Cyclic" else
+                     jparams.ADIABAT_WALL) for i, n in enumerate(mesh.bc_names)}
+    lo = mesh.xv.min(axis=0)
+    conn = build_faces_fn(mesh, flags, mesh.xv.max(axis=0) - lo)
+    ops = {int(ct): ops_of(ops_mod, {v: k for k, v in TYPES.items()}[int(ct)],
+                           2) for ct in np.unique(mesh.ctype)}
+    return (elements.mixed_type_selections(mesh, conn),
+            elements.build_mixed_blocks(mesh, conn, ops, over_int_order=over))
+
+
+@pytest.mark.parametrize("case", sorted(MIXED_MESHES))
+def test_mixed_tables_identical(case):
+    """The port's copies of mixed_type_selections and build_mixed_blocks
+    (its per-type blocks, global slot tables and geometry) against the JAX
+    module's."""
+    import hifiles_tpu.solver.elements as jel
+    import hifiles_tpu_torch.solver.elements as tel
+    sa, ta = mixed_tables(jgen, jax_build_faces, jel, jops, case)
+    sb, tb = mixed_tables(tgen, port_build_faces, tel, tops, case)
+    assert same(sa, sb, "sels") == len(sa) == 2
+    assert same(ta, tb, "mixed") > 20
+
+
+@pytest.mark.parametrize("case", sorted(MIXED_MESHES))
+def test_mixed_flat_slot_tables_cover_each_slot_once(case):
+    """The mixed residual's flat point tables: the interior pairs' two
+    sides and the boundary points together list every global slot exactly
+    once; each pair's points coincide up to a cyclic shift; the boundary
+    points run face by face, each on its face."""
+    import hifiles_tpu_torch.solver.elements as tel
+    from hifiles_tpu_torch.solver.residual_mixed_soa import (
+        MixedSoaTables, bdy_point_faces)
+    _, mt = mixed_tables(tgen, port_build_faces, tel, tops, case)
+    T = MixedSoaTables(mt)
+    every = np.concatenate([T.slot_l, T.slot_r, T.slot_b.ravel()])
+    assert np.array_equal(np.sort(every), np.arange(mt.n_slots))
+    assert T.slot_l.shape == T.slot_r.shape and T.slot_b.shape[0] == 1
+    gap = mt.pos_fpts[T.slot_l] - mt.pos_fpts[T.slot_r]
+    period = np.ptp(mt.pos_fpts, axis=0)
+    shift = np.round(gap / np.where(period > 0, period, 1.0))
+    assert np.abs(gap - shift * period).max() < 1e-9
+    nfp = {int(n) for n in (mt.int_mask > 0).sum(axis=1)}
+    assert len(nfp) == 1 or case == "prism_tet"
+    faces = bdy_point_faces(mt)
+    assert faces.size == T.slot_b.size == (mt.bdy_mask > 0).sum()
+    assert (faces.size > 0) == (case == "prism_tet")
+    assert np.all(np.diff(faces) >= 0)
+    assert (mt.bdy_slot[faces] == T.slot_b[0][:, None]).any(axis=1).all()
