@@ -42,7 +42,19 @@ prints no result line):
                counts read around each run; the rates of `quad`, `tet`,
                `mixed` and `mixed3d` beside `plain` from 8 interleaved
                10-step repeats, and their launches per RK stage;
-  7. checks  - no module of JAX or of the JAX package was imported.
+  7. driver  - `python3 -m hifiles_tpu_torch <deck>` as a subprocess on
+               the `plain` case written as a deck and a Gambit file (TGV
+               p=4 on 16^3 hexes, f32, 20 steps): its iter-20 row gated on
+               bench.GOLDENS["plain"], its vtu, history and ASCII restart
+               files parsed, its volume kernel launches, its wall seconds
+               per part and its launches per RK stage (a profiled chunk);
+               then a restart from the ASCII dump to step 30, held to an
+               uninterrupted 30-step run; and card-vs-CPU f64 cases of
+               compute_dt (dt_type 1 and 2), gradient_fn, sensor_fn and
+               compute_forces, the Couette case against the reference
+               binary's error rows, and, with h5py, an HDF5 restart round
+               trip and a CGNS write;
+  8. checks  - no module of JAX or of the JAX package was imported.
 The last two lines are the kernel record and {"ok": true, "device": ...}.
 The script imports nothing of JAX and nothing of the JAX package.
 """
@@ -102,6 +114,12 @@ PRISM_OVERINT_GOLD = [0.00306439, 0.07352466, 0.07351704, 0.05934145,
                       0.73944568]
 PRISM_TET_WM_GOLD = [0.00000004, 0.00117114, 0.00000670, 0.00087835,
                      0.00000279]
+# and the Couette case's error.dat rows, solution and gradient L2
+# (tests/test_regression_reference.py:274-275: tests/decks/input_couette_50
+# on ywall_channel_quad_mesh(4, 4, 0, 2, 0, 1), p=3, 50 steps, f64), held
+# to 1e-6 * max(1, |gold|) as that test does
+COUETTE_SOL_GOLD = [3.217344e-03, 7.738214e-01, 3.380815e-03, 5.081588e-01]
+COUETTE_GRAD_GOLD = [4.398921e-02, 5.456541e+00, 3.992768e-02, 3.513095e+00]
 # The `quad` and `tet` slices' L1 rows after 10 + 10 f32 steps, recorded by
 # the JAX package on the CPU: `JAX_PLATFORMS=cpu python
 # scripts/gen_torch_goldens.py quad tet` (2026-10-16).
@@ -163,6 +181,36 @@ def tgv_input(order=4, config="plain", **attrs):
         setattr(p, k, v)
     p.setup_params()
     return p
+
+
+# The driver phase's deck: bench.run_tgv("plain")'s RunInput (bench.py:
+# 278-298, the reference's Taylor_Green_vortex deck) written as a deck,
+# with the run control of DRIVER_RUN (vectors carry their length first)
+TGV_DECK = dict(
+    equation=0, viscous=1, order=4, ic_form=7, adv_type=3,
+    riemann_solve_type=3, dt_type=0, dt=1.440389e-5, vcjh_scheme_hexa=1,
+    gamma=1.4, R_gas=286.9, fix_vis=1, prandtl=0.72, Mach_free_stream=0.1,
+    T_free_stream=300.0, rho_free_stream=0.0008421095852102401,
+    mu_gas=1.827e-5, L_free_stream=1.0, Mach_c_ic=0.1, T_c_ic=300.0,
+    rho_c_ic=0.0008421095852102401)
+DRIVER_RUN = dict(
+    n_steps=20, monitor_res_freq=10, res_norm_type=1, plot_freq=20,
+    write_type=0, diagnostic_fields="2 vorticity q_criterion",
+    integral_quantities="2 kineticenergy enstropy", restart_dump_freq=20,
+    restart_ascii=1)
+
+
+def tgv_deck(mesh_file, **run):
+    """The text of the driver phase's deck on ``mesh_file``: TGV_DECK on a
+    2 pi periodic box (one Cyclic group), DRIVER_RUN, and ``run``'s
+    entries over both (e.g. order, n_steps, restart_flag)."""
+    import math
+    keys = dict(TGV_DECK, **DRIVER_RUN)
+    keys.update(run)
+    keys.update(dx_cyclic=2 * math.pi, dy_cyclic=2 * math.pi,
+                dz_cyclic=2 * math.pi, mesh_file=mesh_file,
+                bc_Cyclic_type="cyclic")
+    return "".join(f"{k} {v}\n" for k, v in keys.items())
 
 
 def channel_input(order=4, wall_model=0):
@@ -972,7 +1020,8 @@ def launches_per_stage(s, dt):
 def phase_rates(card, runs):
     """The rate of each of ``runs`` (name -> (solver, deck)): median and
     quartiles of N_RATE_REPEATS 10-step repeats, the slices taking turns so
-    that both see the same host; then launches per RK stage."""
+    that both see the same host; then launches per RK stage.  Returns the
+    medians by name."""
     import numpy as np
     import torch
     rates = {name: [] for name in runs}
@@ -992,6 +1041,312 @@ def phase_rates(card, runs):
             f"stage; on [{card}]")
         if not np.isfinite(s.residual_norm(1)).all():
             raise AssertionError(f"{name} went non-finite in the repeats")
+    return {name: float(np.median(r)) for name, r in rates.items()}
+
+
+def run_driver(deck, outdir, *extra):
+    """``python3 -m hifiles_tpu_torch deck --outdir outdir *extra`` on the
+    card, as a subprocess from the repository's root: its stdout, and the
+    volume kernel's launches by variant and the wall seconds by part that
+    it prints."""
+    res = subprocess.run([sys.executable, "-m", "hifiles_tpu_torch", deck,
+                          "--outdir", outdir, *extra], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise AssertionError(f"driver on {deck} exited {res.returncode}:\n"
+                             f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+    read = lambda key: json.loads(re.search(rf"^{key}: (.*)$", res.stdout,
+                                            re.M).group(1))
+    return res.stdout, read("volume_tdisf launches"), read("wall seconds")
+
+
+def history_rows(path):
+    """history.plt's header lines and its rows as float arrays."""
+    import numpy as np
+    with open(path) as f:
+        lines = f.read().splitlines()
+    return lines[:2], [np.array(line.split(), dtype=float)
+                       for line in lines[2:]]
+
+
+def check_driver_files(d, step):
+    """The first driver run's files at ``step``: the .pvtu and its .vtu
+    well-formed XML holding rho, vorticity and q_criterion; history.plt's
+    header and 2 finite rows; the ASCII restart's header, element count
+    and data rows.  Returns a description."""
+    import xml.etree.ElementTree as ET
+    import numpy as np
+    name = f"Mesh_{step:09d}"
+    ET.parse(os.path.join(d, name + ".pvtu"))
+    vtu = ET.parse(os.path.join(d, name, name + "_p0000.vtu"))
+    fields = {da.get("Name") for da in vtu.iter("DataArray")}
+    if not {"rho", "vorticity", "q_criterion"} <= fields:
+        raise AssertionError(f"vtu fields {sorted(fields - {None})}")
+    for da in vtu.iter("DataArray"):
+        if da.get("Name") in ("rho", "vorticity", "q_criterion"):
+            vals = np.array(da.text.split(), dtype=float)
+            if not (vals.size and np.isfinite(vals).all()):
+                raise AssertionError(f"vtu field {da.get('Name')}")
+    head, rows = history_rows(os.path.join(d, "history.plt"))
+    if not (head[0].startswith("VARIABLES") and len(rows) == 2
+            and all(np.isfinite(r).all() for r in rows)):
+        raise AssertionError(f"history.plt: {head}, {len(rows)} rows")
+    with open(os.path.join(d, f"Rest_{step:09d}_p0000.dat")) as f:
+        lines = f.read().splitlines()
+    E, U = int(lines[9]), int(lines[5])
+    data = [x for x in lines[13:] if x]
+    if not (lines[1] == "HEXAS" and len(data) == E * (U + 1)
+            and float(lines[0]) > 0):
+        raise AssertionError(f"restart file header {lines[:10]}")
+    return (f"vtu fields {sorted(fields - {None})}, history {len(rows)} "
+            f"rows, restart E={E} U={U} t={float(lines[0]):.6e}")
+
+
+def phase_driver(card, api_solver, api_rate):
+    """The port's entry point, ``python3 -m hifiles_tpu_torch <deck>``, on
+    the `plain` case at full width: tgv_deck on periodic_hex_mesh(16, 16,
+    16) written with the port's write_gambit (4,096 hexes, p=4, f32, 20
+    steps, output at step 20), gated on bench.GOLDENS["plain"] as
+    phase_slice gates the API run; its files parsed; its volume kernel
+    launched; then a restart from its ASCII dump for 10 steps, whose
+    iter-30 history row must equal an uninterrupted 30-step run's (rtol
+    1e-5), that run profiling its first 10-step chunk for the launches per
+    RK stage.  ``api_solver`` and ``api_rate`` are the API's `plain` run
+    and its median rate, printed beside the driver's."""
+    import numpy as np
+    from hifiles_tpu_torch import periodic_hex_mesh
+    from hifiles_tpu_torch.mesh.gambit import write_gambit
+    d = os.path.join(ROOT, "build", "driver_tgv")
+    d30 = os.path.join(ROOT, "build", "driver_tgv30")
+    for x in (d, d30):
+        shutil.rmtree(x, ignore_errors=True)
+        os.makedirs(x)
+    t0 = time.perf_counter()
+    write_gambit(periodic_hex_mesh(16, 16, 16), os.path.join(d, "tgv16.neu"))
+    log(f"driver: tgv16.neu written in {time.perf_counter() - t0:.3f} s")
+    decks = {"run": tgv_deck("tgv16.neu"),
+             "restart": tgv_deck("tgv16.neu", n_steps=10, restart_flag=1,
+                                 restart_iter=20, n_restart_files=1),
+             "whole": tgv_deck("tgv16.neu", n_steps=30, plot_freq=10**6,
+                               restart_dump_freq=10**6)}
+    for name, text in decks.items():
+        with open(os.path.join(d, name + ".deck"), "w") as f:
+            f.write(text)
+    deck = lambda name: os.path.join(d, name + ".deck")
+
+    t0 = time.perf_counter()
+    out, launches, wall = run_driver(deck("run"), d)
+    total = time.perf_counter() - t0
+    row = np.array(re.search(r"^iter +20 .*res: (.*)$", out, re.M)
+                   .group(1).split(), dtype=float)
+    gold, rtol = slice_gate("plain")
+    rel = np.abs(row - gold) / np.abs(gold)
+    log(f"driver plain iter-20 row [{', '.join(f'{v:.6e}' for v in row)}]")
+    log(f"driver plain rel err per row {[float(f'{r:.3e}') for r in rel]} "
+        f"(gate {rtol})")
+    if not (np.isfinite(row).all() and np.all(rel < rtol)):
+        raise AssertionError(f"driver's iter-20 row off the golden: {row}")
+    log(f"driver plain files: {check_driver_files(d, 20)}")
+    ns_key = next(v["key"] for v in VARIANTS if v["name"] == "ns")
+    log(f"driver plain volume_tdisf launches in its process: {launches}")
+    if launches.get(ns_key, 0) <= 0:
+        raise AssertionError(f"volume_tdisf[ns] ({ns_key}) not launched "
+                             "by the driver")
+    steps = wall["steps"]
+    log(f"driver plain process {total:.3f} s; steps 11-20 {steps:.4f} s, "
+        f"{steps / 50 * 1e3:.4f} ms per RK stage (steps 1-10, the first "
+        f"chunk, {wall['first chunk']:.4f} s); the API's median "
+        f"{api_solver.dof / api_rate * 1e3:.4f} ms per RK stage; on [{card}]")
+    # the API on the mesh the driver read: Gambit's 12-digit coordinates
+    # leave the geometry uniform only to ~1e-11, so the 1e-12 compression
+    # test (residual_soa._uniform_column) keeps it per element
+    import torch
+    from hifiles_tpu_torch import Solver
+    from hifiles_tpu_torch.mesh.gambit import read_gambit
+    from hifiles_tpu_torch.solver.residual_soa import _uniform_column
+    s = Solver(tgv_input(order=4), read_gambit(os.path.join(d, "tgv16.neu")),
+               device="cuda", dtype=torch.float32)
+    s.run(10, dt=s.p.dt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s.run(10, dt=s.p.dt)
+    torch.cuda.synchronize()
+    api_ms = (time.perf_counter() - t0) / 50 * 1e3
+    uniform = _uniform_column(s.block.jginv_upts, 0) is not None
+    log(f"driver plain: the API on the driver's Gambit mesh {api_ms:.4f} ms "
+        f"per RK stage (steps 11-20; geometry compressed: {uniform}); on "
+        f"[{card}]")
+    del s
+    out2, _, wall2 = run_driver(deck("restart"), d)
+    for part, sec in list(wall.items()) + [("restart read",
+                                            wall2["restart read"])]:
+        log(f"driver plain wall {part}: {sec:.4f} s on [{card}]")
+    _, rows_restart = history_rows(os.path.join(d, "history.plt"))
+    out3, _, _ = run_driver(deck("whole"), d30, "--profile")
+    _, rows_whole = history_rows(os.path.join(d30, "history.plt"))
+    a, b = rows_restart[-1], rows_whole[-1]
+    rel = np.abs(a[1:-1] - b[1:-1]) / np.abs(b[1:-1])
+    log(f"driver restart at 20 -> iter {a[0]:.0f} history row "
+        f"{a[1:-1].tolist()}; uninterrupted {b[1:-1].tolist()}; rel err "
+        f"{rel.max():.3e} (gate 1e-5)")
+    if not (a[0] == b[0] == 30 and np.all(rel < 1e-5)):
+        raise AssertionError("restart continuation differs from the "
+                             "uninterrupted run")
+    with open(os.path.join(d30, "torch_trace")) as f:
+        events = json.load(f)["traceEvents"]
+    n_dev = sum(1 for e in events if e.get("cat") in ("kernel", "gpu_memcpy",
+                                                      "gpu_memset"))
+    log(f"driver plain launches per RK stage {n_dev / 50:.1f} ({n_dev} "
+        "device kernels, copies and memsets in its profiled first chunk: "
+        "10 steps of 5 stages and one monitor residual)")
+
+
+def phase_diagnostics(card):
+    """Card-vs-CPU f64 cases of the diagnostics the driver and writers
+    read, each held at 1e-12 * max(scale, 1): compute_dt for dt_type 1
+    and 2 (the viscous 4^3 p=3 hex box, a tet box, the tri+quad box
+    through MixedSolver) and the state after 5 steps with it;
+    gradient_fn on the hex box and the walled quad channel; sensor_fn on
+    the `shock` configuration; compute_forces on the walled quad channel.
+    Then the Couette case against the reference binary's rows, and, with
+    h5py, an HDF5 restart round trip and a CGNS write."""
+    import importlib.util
+    import numpy as np
+    import torch
+    from hifiles_tpu_torch import (RunInput, Solver, periodic_hex_mesh,
+                                   periodic_mixed_mesh_2d, periodic_tet_mesh)
+    from hifiles_tpu_torch.io.forces import compute_forces
+    f64 = torch.float64
+    as_np = lambda x: (x.cpu().numpy() if isinstance(x, torch.Tensor)
+                       else np.asarray(x))
+
+    def held(name, got, want):
+        got, want = np.asarray(got, dtype=float), np.asarray(want, dtype=float)
+        err = np.abs(got - want).max()
+        scale = np.abs(want).max()
+        bound = 1e-12 * max(scale, 1.0)
+        log(f"diagnostics {name} f64 card vs CPU: max abs err {err:.3e} "
+            f"(bound {bound:.3e}, scale {scale:.3e})")
+        if not (got.shape == want.shape and np.isfinite(got).all()
+                and err <= bound):
+            raise AssertionError(f"{name}: card disagrees with the CPU")
+
+    def both(p, mesh, config=None, seed=0):
+        """The card's and the CPU's solver from the same seeded state."""
+        gpu = make_solver(p, mesh, config, "cuda", f64)
+        cpu = make_solver(p, mesh, config, "cpu", f64)
+        rng = np.random.default_rng(seed)
+        u = tuple(a * (1.0 + 0.02 * rng.random(a.shape)) for a in
+                  (cpu.u if isinstance(cpu.u, tuple) else (cpu.u,)))
+        for s in (gpu, cpu):
+            s.set_state(u, tuple(np.zeros_like(a) for a in u), 0.0)
+        return gpu, cpu, u
+
+    dt_cases = {
+        "hex 4^3 p=3": lambda: (tgv_input(order=3), periodic_hex_mesh(4, 4,
+                                                                      4)),
+        "tet 2^3 p=3": lambda: (tgv_input(order=3), periodic_tet_mesh(2, 2,
+                                                                      2)),
+        "tri+quad 6^2 p=3": lambda: (vortex_input(order=3),
+                                     periodic_mixed_mesh_2d(6, 6, -10, 10,
+                                                            -10, 10)),
+    }
+    for name, make in dt_cases.items():
+        for dt_type in (1, 2):
+            p, mesh = make()
+            p.dt_type, p.CFL = dt_type, 0.5
+            gpu, cpu, _ = both(p, mesh)
+            held(f"compute_dt {name} dt_type {dt_type}",
+                 as_np(gpu.compute_dt()), as_np(cpu.compute_dt()))
+            for _ in range(5):
+                gpu.run(1, dt=gpu.compute_dt())
+                cpu.run(1, dt=cpu.compute_dt())
+            held(f"{name} dt_type {dt_type} state after 5 CFL steps",
+                 flat(gpu.u), flat(cpu.u))
+    for name, (p, mesh) in {
+            "gradient_fn hex 4^3 p=3": (tgv_input(order=3),
+                                        periodic_hex_mesh(4, 4, 4)),
+            "gradient_fn walled quad channel": (quad_wall_input(),
+                                                quad_wall_mesh())}.items():
+        gpu, cpu, u = both(p, mesh)
+        held(name, gpu.gradient_fn(u[0]), cpu.gradient_fn(u[0]))
+    gpu, cpu, u = both(tgv_input(order=3, config="shock"),
+                       periodic_hex_mesh(4, 4, 4), "shock")
+    held("sensor_fn shock 4^3 p=3", gpu.sensor_fn(u[0]), cpu.sensor_fn(u[0]))
+    gpu, cpu, _ = both(quad_wall_input(), quad_wall_mesh())
+    fg, fc = compute_forces(gpu), compute_forces(cpu)
+    held("compute_forces walled quad channel",
+         np.concatenate([fg[k].ravel() for k in sorted(fg)]),
+         np.concatenate([fc[k].ravel() for k in sorted(fc)]))
+
+    # the Couette case: the driver's error.dat solution row, and the
+    # gradient row of the last RK stage's input state, the state the
+    # reference binary's row is of (tests/test_regression_reference.py:
+    # 289-302), against the goldens
+    from hifiles_tpu_torch.convert import ufe_to_euf
+    from hifiles_tpu_torch.driver import main as driver_main
+    from hifiles_tpu_torch.mesh.gambit import write_gambit
+    from hifiles_tpu_torch.mesh.generate import ywall_channel_quad_mesh
+    from hifiles_tpu_torch.solver.step import RK45_A, RK45_B
+    d = os.path.join(ROOT, "build", "driver_couette")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    mesh = ywall_channel_quad_mesh(4, 4, 0.0, 2.0, 0.0, 1.0,
+                                   bc_ymin="Isotherm_Fix",
+                                   bc_ymax="Isotherm_Mov")
+    write_gambit(mesh, os.path.join(d, "quad_couette.neu"))
+    shutil.copy(os.path.join(DECKS, "input_couette_50"),
+                os.path.join(d, "run.deck"))
+    if driver_main([os.path.join(d, "run.deck"), "--f64", "--outdir",
+                    d]) != 0:
+        raise AssertionError("the driver failed on the Couette deck")
+    row = np.loadtxt(os.path.join(d, "error.dat"))
+    p = RunInput.from_deck(os.path.join(d, "run.deck"))
+    s = Solver(p, mesh, device="cuda", dtype=f64)
+    s.run(p.n_steps - 1, dt=p.dt)
+    u, r = s.u_soa.clone(), torch.zeros_like(s.u_soa)
+    for a, b in zip(RK45_A, RK45_B):
+        u_in = u.clone()
+        r = a * r + p.dt * s._rhs(u, None)
+        u = u + b * r
+    s.set_state(ufe_to_euf(u), np.zeros(ufe_to_euf(u).shape), s.time)
+    grad_row = np.sqrt(s.compute_error(2, u_grad=ufe_to_euf(u_in))[1])
+    for name, got, gold in (("error.dat solution row", row[:4],
+                             COUETTE_SOL_GOLD),
+                            ("gradient row (last stage's input)", grad_row,
+                             COUETTE_GRAD_GOLD)):
+        gold = np.asarray(gold)
+        rel = np.abs(got - gold) / np.maximum(1.0, np.abs(gold))
+        log(f"couette {name} [{', '.join(f'{v:.10e}' for v in got)}], "
+            f"|diff| / max(1, |gold|) {rel.max():.3e} (gate 1e-6)")
+        if not rel.max() < 1e-6:
+            raise AssertionError(f"Couette {name} off the reference")
+    log(f"couette error.dat gradient row (final state) "
+        f"[{', '.join(f'{v:.10e}' for v in row[4:])}]")
+
+    if importlib.util.find_spec("h5py") is None:
+        log("diagnostics hdf5: h5py absent (HDF5 restart and CGNS not run; "
+            "the ASCII restart and vtu checks ran)")
+        return
+    from hifiles_tpu_torch.io.cgns import read_cgns_summary, write_cgns
+    from hifiles_tpu_torch.io.restart import read_restart, write_restart
+    d = os.path.join(ROOT, "build", "driver_h5")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    p, mesh = tgv_input(order=3), periodic_hex_mesh(4, 4, 4)
+    p.diagnostic_fields = ["u", "pressure"]
+    gpu, _, u = both(p, mesh)
+    gpu.run(2, dt=p.dt)
+    path = write_restart(d, gpu, step=2)
+    back = Solver(p, mesh, device="cuda", dtype=f64)
+    t = read_restart(path, back)
+    zones = read_cgns_summary(write_cgns(gpu, d, 2))["zones"]
+    if not (t == gpu.time and np.array_equal(back.u, gpu.u)
+            and zones[0]["n_cells"] == 64):
+        raise AssertionError("HDF5 restart or CGNS round trip failed")
+    log(f"diagnostics hdf5: h5py present; HDF5 restart round trip exact "
+        f"(t={t:.6e}), CGNS zone {zones[0]['n_vertices']} vertices, fields "
+        f"{zones[0]['fields']}")
 
 
 def main():
@@ -1008,7 +1363,9 @@ def main():
     runs = {"plain": runs["plain"]}
     runs.update((name, phase_slice(card, name, counts))
                 for name in NEW_SLICES + MIXED_SLICES)
-    phase_rates(card, runs)
+    rates = phase_rates(card, runs)
+    phase_driver(card, runs["plain"][0], rates["plain"])
+    phase_diagnostics(card)
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "hifiles_tpu")]
     if loaded:

@@ -5,7 +5,9 @@ its own copies of the JAX package's numpy host layers (config/: the deck
 parser and RunInput; mesh/: MeshData, face connectivity, generators and
 readers; ops/: the operator builders; native/: the C++ mesh kernels) and
 runs the time loop on a torch device, with the JAX package's Pallas kernels
-written by hand in CUDA (csrc/).  It imports neither JAX nor hifiles_tpu.
+written by hand in CUDA (csrc/).  ``python -m hifiles_tpu_torch <deck>``
+(driver.py) runs a reference-format deck with the writers of io/.  It
+imports neither JAX nor hifiles_tpu.
 """
 
 # Element type codes, matching ref:include/global.h:46-55 (CTYPE enum);

@@ -1,0 +1,251 @@
+"""Run driver: ``python -m hifiles_tpu_torch <input_file>``, the
+``bin/HiFiLES <input_file>`` analog (ref:src/HiFiLES.cpp:41-343).
+
+Port of hifiles_tpu/driver.py (:17-250), step for step: it reads a
+reference-format deck and its Gambit or Gmsh mesh, builds the port's Solver
+(or MixedSolver for mixed and prism meshes) on the card, and runs the outer
+time loop in chunks between output events, with CFL time steps, residual
+monitoring, history, ParaView/Tecplot/CGNS plots, probes, forces, restart
+dumps and the final analytic-error report, printing the same lines and
+writing the same files as the JAX driver.  Its own options:
+``--device cuda|cpu`` (the card unless the CPU is asked for), ``--f64``
+(float64; float32 otherwise) and ``--profile`` (a torch.profiler chrome
+trace of the first chunk in ``<outdir>/torch_trace``).  ``--devices N``
+(element-sharded runs) is not ported yet and raises.  A deck with
+``restart_ascii`` restarts from the ASCII file the run dumps
+(``Rest_<iter>_p0000.dat``), where the JAX driver reads only the HDF5 one;
+the reference reads both.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import json
+import os
+import sys
+import time
+
+USAGE = ("usage: python -m hifiles_tpu_torch <input_file> [--f64] "
+         "[--outdir D] [--profile] [--device cuda|cpu]")
+
+
+def load_mesh(run_input, deck_dir: str):
+    """The deck's mesh_file, relative to the deck's directory unless
+    absolute: Gambit (.neu) or Gmsh (.msh)."""
+    from .mesh.gambit import read_gambit
+
+    path = run_input.mesh_file
+    if not os.path.isabs(path):
+        path = os.path.join(deck_dir, path)
+    if path.endswith(".neu"):
+        return read_gambit(path)
+    if path.endswith(".msh"):
+        from .mesh.gmsh import read_gmsh
+        return read_gmsh(path)
+    raise ValueError(f"unknown mesh format: {path}")
+
+
+def _option(argv, name, default):
+    """The value after ``name`` in argv, or ``default``."""
+    return argv[argv.index(name) + 1] if name in argv else default
+
+
+def main(argv=None):
+    """Run the deck named by argv[0]; returns the exit code.  Besides the
+    JAX driver's lines it prints the volume kernel's launches by variant
+    and the wall seconds of each part of the run (mesh read, solver
+    set-up, restart read, the first chunk of steps, the later steps,
+    monitor, plots, restart write), the steps synchronised with the
+    card."""
+    import numpy as np
+    import torch
+
+    from . import PRISM
+    from .config.params import RunInput
+    from .io.history import HistoryWriter
+    from .io.restart import read_restart, restart_filename, write_restart
+    from .io.vtu import write_vtu
+    from .solver.volume import volume_tdisf
+
+    argv = argv if argv is not None else sys.argv[1:]
+    if not argv:
+        print(USAGE)
+        return 1
+    if "--devices" in argv:
+        raise NotImplementedError(
+            "hifiles_tpu_torch: --devices (element-sharded runs over "
+            "several GPUs) is not ported yet; it comes with the multi-GPU "
+            "slice")
+    deck_path = argv[0]
+    dtype = torch.float64 if "--f64" in argv else torch.float32
+    profile = "--profile" in argv
+    outdir = _option(argv, "--outdir", ".")
+    device = _option(argv, "--device", "cuda")
+    os.makedirs(outdir, exist_ok=True)
+    wall = collections.Counter()
+
+    @contextlib.contextmanager
+    def timed(part):
+        t0 = time.perf_counter()
+        yield
+        wall[part] += time.perf_counter() - t0
+
+    t_start = time.time()
+    p = RunInput.from_deck(deck_path)
+    with timed("mesh read"):
+        mesh = load_mesh(p, os.path.dirname(os.path.abspath(deck_path)))
+    print(f"mesh: {mesh.n_cells} cells, {mesh.n_verts} vertices, "
+          f"boundaries {mesh.bc_names}")
+
+    # pure-prism meshes run through MixedSolver, as the JAX driver routes
+    # them (driver.py:75-84: prism tri and quad faces differ in size)
+    cts_present = np.unique(mesh.ctype)
+    mixed = cts_present.size > 1 or int(cts_present[0]) == PRISM
+    with timed("solver set-up"):
+        if mixed:
+            from .solver.multiblock import MixedSolver
+            solver = MixedSolver(p, mesh, device=device, dtype=dtype)
+        else:
+            from .solver.solver import Solver
+            solver = Solver(p, mesh, device=device, dtype=dtype)
+    on_card = solver.device.type == "cuda"
+    print(f"solver: order {p.order}, {solver.n_fields} fields, "
+          f"{solver.dof} DOF/field")
+
+    def sync():
+        """The solver the writers read: the one solver, until element-
+        sharded runs give the driver a twin to gather into (driver.py:
+        109-131)."""
+        return solver
+
+    if p.restart_flag:
+        with timed("restart read"):
+            if p.restart_ascii:
+                from .io.restart import read_restart_ascii
+                path = os.path.join(outdir, f"Rest_{p.restart_iter:09d}"
+                                    "_p0000.dat")
+                t = read_restart_ascii(path, solver)
+            else:
+                path = restart_filename(outdir, p.restart_iter)
+                t = read_restart(path, solver)
+        print(f"restarted from {path} at t={t}")
+        if p.patch:
+            # patch applied on restart too (ref:src/solver.cpp:321-482);
+            # MixedSolver refuses patched decks when it is built
+            from .solver.ics import apply_patch
+            solver.set_state(
+                apply_patch(p, solver.block.pos_upts,
+                            np.asarray(solver.u, dtype=np.float64)),
+                np.zeros_like(solver.u), t)
+        i0 = p.restart_iter
+    else:
+        i0 = 0
+
+    hist = HistoryWriter(os.path.join(outdir, "history.plt"), solver)
+    probes = None
+    if p.probe:
+        from .io.probes import setup_probes
+        probes = setup_probes(p, solver, outdir)
+    events = sorted({p.monitor_res_freq, p.plot_freq, p.restart_dump_freq,
+                     getattr(p, "probe_freq", 0) or 0})
+    chunk = max(1, min(e for e in events if e > 0))
+
+    prof = None
+    if profile:
+        # torch.profiler trace of the first chunk, the JAX driver's
+        # jax.profiler slot (view with perfetto or chrome://tracing)
+        from torch.profiler import ProfilerActivity
+        acts = [ProfilerActivity.CPU]
+        if on_card:
+            acts.append(ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+        prof.start()
+
+    i = i0
+    while i < i0 + p.n_steps:
+        n = min(chunk, i0 + p.n_steps - i)
+        # the first chunk also pays the process's first launches
+        with timed("steps" if i > i0 else "first chunk"):
+            solver.run(n, dt=solver.compute_dt())
+            if on_card:
+                torch.cuda.synchronize()
+        i += n
+        if i % p.monitor_res_freq == 0 or i == i0 + p.n_steps:
+            with timed("monitor"):
+                row = hist.write(i)
+            res = row["residual"]
+            # NaN abort (ref:src/output.cpp:2268-2275 HistoryOutput)
+            if not np.isfinite(res).all():
+                raise FloatingPointError(
+                    f"NaN residual at iteration {i}; aborting "
+                    f"(ref CheckStopConditions behavior)")
+            res_s = " ".join(f"{r:.6e}" for r in res)
+            print(f"iter {i:8d}  t={solver.time:.6e}  res: {res_s}")
+            if p.forcing:
+                # mass-flux history of the body-forced inflow plane
+                # (ref:src/eles.cpp:5430-5453 massflux.dat)
+                mf = solver.inflow_massflux()
+                if mf is not None:
+                    with open(os.path.join(outdir, "massflux.dat"),
+                              "a") as fh:
+                        fh.write(f"{i}, {mf[0]:.15g}, {mf[1]:.15g}, "
+                                 f"{mf[2]:.15g}\n")
+            if p.calc_force:
+                from .io.forces import write_force_file
+                write_force_file(sync(), outdir, i)
+                print(f"         force: "
+                      + " ".join(f"{x:.6e}" for x in row["force"]))
+        if (p.calc_force and 0 < p.monitor_cp_freq < 2**31 - 1
+                and i % p.monitor_cp_freq == 0):
+            # cp-distribution dumps at their own cadence
+            # (ref:src/HiFiLES.cpp monitor_cp_freq)
+            from .io.forces import write_force_file
+            write_force_file(sync(), outdir, i)
+        if probes is not None and getattr(p, "probe_freq", 0) \
+                and i % p.probe_freq == 0:
+            probes.append(sync(), i)
+        if p.plot_freq and i % p.plot_freq == 0:
+            if p.write_type == 1:
+                from .io.tecplot import write_tec
+                with timed("tecplot"):
+                    write_tec(sync(), outdir, i)
+            elif p.write_type == 2:
+                from .io.cgns import write_cgns
+                with timed("cgns"):
+                    write_cgns(sync(), outdir, i)
+            else:
+                with timed("vtu"):
+                    write_vtu(sync(), outdir, i)
+        if prof is not None and i - i0 >= chunk:
+            if on_card:
+                torch.cuda.synchronize()
+            prof.stop()
+            prof.export_chrome_trace(os.path.join(outdir, "torch_trace"))
+            prof = None
+            print(f"profiler trace written to {outdir}/torch_trace")
+        if p.restart_dump_freq and i % p.restart_dump_freq == 0:
+            with timed("restart write"):
+                if p.restart_ascii:
+                    from .io.restart import write_restart_ascii
+                    write_restart_ascii(outdir, sync(), step=i)
+                else:
+                    write_restart(outdir, sync(), step=i)
+
+    if p.test_case:
+        err = sync().compute_error()
+        norm = np.sqrt(err) if p.error_norm_type == 2 else err
+        row = list(norm[0])
+        if p.viscous:
+            # gradient-error row appended like the reference
+            # (ref:src/output.cpp:2144-2157)
+            row += list(norm[1])
+        print("final error vs analytic:", " ".join(f"{e:.10e}" for e in row))
+        with open(os.path.join(outdir, "error.dat"), "a") as f:
+            f.write(" ".join(f"{e:.10e}" for e in row) + "\n")
+
+    print("volume_tdisf launches: "
+          + json.dumps(dict(volume_tdisf.by_variant)))
+    print("wall seconds: " + json.dumps(dict(wall)))
+    print(f"total wall time {time.time() - t_start:.1f}s")
+    return 0

@@ -7,7 +7,8 @@ and build_over_int_ops are copied from hifiles_tpu/ops/stabilization.py
 make_shock_capture_soa ports that module's make_shock_capture_soa
 (:100-130) to torch (ref:src/eles_hexas.cpp:1007-1059 sensor,
 ref:src/eles_quads.cpp:790-820 filter, ref:src/eles.cpp:2918-2959
-application once per RK stage).
+application once per RK stage); its sensor, make_persson_sensor, is also
+the solvers' sensor_fn diagnostic (:74-96).
 """
 
 from __future__ import annotations
@@ -124,26 +125,43 @@ def build_over_int_ops(ops: ElementOps, over_int_order: int):
     return loc, opp_over, over_filter
 
 
-def make_shock_capture_soa(ops, s0: float, expf_fac: float, expf_order: int,
-                           expf_cutoff: int, shock_det_field: int,
-                           n_dims: int, device, dtype):
-    """capture(u) with u (U, F, E): replaces, IN PLACE, the state of every
-    element whose Persson sensor on density (shock_det_field 0) or total
-    energy is >= s0 by its exponentially filtered state, and returns u."""
+def make_persson_sensor(ops, shock_det_field: int, n_dims: int, device,
+                        dtype):
+    """sensor(u) with u (U, F, E) -> the Persson sensor (E,): the energy
+    of the top modes over the whole modal energy of density
+    (shock_det_field 0) or total energy (make_shock_capture_fn's sensor,
+    :90-93 of the JAX module)."""
     f = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
     Vinv = f(ops.inv_vandermonde)                                  # (M, U)
-    filt = f(build_exp_filter(ops, expf_fac, expf_order, expf_cutoff))
     norms = f(ops.modal_norms)[:, None]
     top = f(persson_top_mode_mask(ops))[:, None]
     field = 0 if shock_det_field == 0 else n_dims + 1
 
-    def capture(u):
-        U = u.shape[0]
+    def sensor(u):
         modal = Vinv @ u[:, field]                                 # (M, E)
         e2 = modal * modal * norms
-        sensor = (e2 * top).sum(0) / e2.sum(0)                     # (E,)
+        return (e2 * top).sum(0) / e2.sum(0)                       # (E,)
+
+    return sensor
+
+
+def make_shock_capture_soa(ops, s0: float, expf_fac: float, expf_order: int,
+                           expf_cutoff: int, shock_det_field: int,
+                           n_dims: int, device, dtype):
+    """capture(u) with u (U, F, E): replaces, IN PLACE, the state of every
+    element whose Persson sensor (``capture.sensor``, make_persson_sensor)
+    is >= s0 by its exponentially filtered state, and returns u."""
+    sensor = make_persson_sensor(ops, shock_det_field, n_dims, device, dtype)
+    filt = torch.as_tensor(build_exp_filter(ops, expf_fac, expf_order,
+                                            expf_cutoff),
+                           dtype=dtype, device=device)
+
+    def capture(u):
+        U = u.shape[0]
+        fires = sensor(u) >= s0
         filtered = (filt @ u.reshape(U, -1)).view(u.shape)
         # torch.where writes a new tensor, so u is not read while written
-        return u.copy_(torch.where(sensor >= s0, filtered, u))
+        return u.copy_(torch.where(fires, filtered, u))
 
+    capture.sensor = sensor
     return capture

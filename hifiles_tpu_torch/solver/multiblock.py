@@ -20,12 +20,26 @@ import torch
 
 from ..config.params import RunInput
 from ..mesh.core import MeshData
+from ..models.euler import max_wavespeed
 from .bc import BCFunctions, use_wm_of, wall_models_on
 from .elements import MixedMeshTables, build_mixed_blocks
 from .ics import initial_condition
 from .residual_mixed_soa import bdy_point_faces, make_mixed_residual_soa
 from .solver import (BlockLoop, build_ops, needs_wall_distance,
                      not_ported_run, wall_points)
+
+
+def _unsupported(p: RunInput, _mesh) -> list:
+    """MixedSolver features this port does not cover yet: those of every
+    solver, and ``patch``, which the JAX MixedSolver leaves unapplied
+    (multiblock.py:544-548: its initial state is never patched, and its
+    driver patches a restart only through a single-type solver's block,
+    driver.py:137-143), so the port has no behaviour to hold it to."""
+    missing = not_ported_run(p)
+    if p.patch:
+        missing.append("patch (the JAX MixedSolver leaves the initial and "
+                       "restart states unpatched)")
+    return missing
 
 
 def build_mixed_wm_tables(mt: MixedMeshTables, use_wm_face: np.ndarray):
@@ -90,13 +104,14 @@ def mixed_bc_functions(run_input: RunInput, mt: MixedMeshTables, rcfg,
 class MixedSolver(BlockLoop):
     """Solver for meshes with more than one element type, or of prisms, on
     one device (``device`` "cuda", the default, or "cpu"); the interface of
-    Solver (run, set_state, residual_norm, compute_error, inflow_massflux)
-    with per-type tuples where Solver takes or gives one array."""
+    Solver (run, set_state, residual_norm, compute_error, compute_dt,
+    inflow_massflux) with per-type tuples where Solver takes or gives one
+    array, and ``sensor_fns`` per element type where Solver has
+    ``sensor_fn``."""
 
     def __init__(self, run_input: RunInput, mesh: MeshData, device="cuda",
                  dtype=torch.float64):
-        self._setup(run_input, mesh, device, dtype,
-                    lambda p, _: not_ported_run(p))
+        self._setup(run_input, mesh, device, dtype, _unsupported)
         self.cts = cts = sorted(int(c) for c in np.unique(mesh.ctype))
         self.ops_by_ct = {ct: build_ops(run_input, ct) for ct in cts}
         self.mt = mt = build_mixed_blocks(
@@ -134,8 +149,28 @@ class MixedSolver(BlockLoop):
             return out
         blocks = [mt.blocks[ct] for ct in cts]
         self._setup_loop(blocks, [mt.sels[ct] for ct in cts], rhs)
+        self.sensor_fns = ({ct: self._sensor_of(i) for i, ct in
+                            enumerate(cts)} if run_input.shock_cap else None)
 
         # initial condition at each block's solution points
         u0 = tuple(initial_condition(run_input, b.pos_upts, self.n_fields)
                    for b in blocks)
         self.set_state(u0, tuple(np.zeros_like(a) for a in u0), 0.0)
+
+    def compute_dt(self) -> float:
+        """The time step by the JAX MixedSolver's rule (multiblock.py:
+        843-853), which the port mirrors: dt_type 0 the deck's dt; else the
+        inviscid CFL limit only (no viscous limit), its minimum over every
+        block's elements as a float for dt_type 1 and 2 alike.  |v| + c is
+        computed on the device in the state's dtype, the rest on the host
+        in float64, as there."""
+        p = self.p
+        if p.dt_type == 0:
+            return p.dt
+        dts = []
+        for b, u in zip(self._blocks, self._views(self.u_soa)):
+            lam = max_wavespeed(u.unbind(1), p.gamma, self.n_dims).amax(dim=0)
+            dt_ele = (p.CFL * b.h_ref / lam.cpu().numpy()
+                      / (2 * p.order + 1))
+            dts.append(dt_ele.min())
+        return float(min(dts))

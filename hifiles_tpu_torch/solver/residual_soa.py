@@ -461,9 +461,11 @@ def config_missing(cfg: ResidualConfig, d: int, blocks, has_bdy: bool,
         missing.append(f"riemann_solve_type {cfg.riemann_solve_type} "
                        "(Lax-Friedrichs)")
     if cfg.rans and cfg.riemann_solve_type == HLLC:
-        # the JAX package runs it on its slot path (residual_soa.py:852,
-        # residual_mixed_soa.py:291-292)
-        missing.append("SA-RANS with HLLC (its star states carry no SA "
+        # the deck parsers refuse the pair (config/params.py:467-471, as
+        # the JAX package's do), and no JAX path runs it: its HLLC builds
+        # d + 2 flux columns
+        missing.append("SA-RANS with HLLC (the deck rule refuses RANS with "
+                       "Roe/HLLC fluxes; its star states carry no SA "
                        "field)")
     if cfg.rans and not cfg.viscous:
         missing.append("inviscid SA-RANS")
@@ -717,11 +719,11 @@ def make_face_residual(stages, FA: FaceArrays, ph: Physics, bc_fns=None,
                 ws.index_copy_(1, cols, u[upt, :, ele].T)
         return ws.view(nF, *(1,) * (len(FA.shape_b) - 1), -1).unbind(0)
 
-    def residual(us, fluc=None, ramp=None, out=None):
-        if fluc is not None:
-            raise NotImplementedError(
-                "hifiles_tpu_torch residual: not ported yet: turbulent-inlet "
-                "fluctuations (fluc)")
+    def face_states(us, ramp):
+        """Steps 1-2: the per-block flux-point rows (F, E_t, Pf_t), the
+        interior faces' two sides (F, *face plane), and the boundary faces'
+        own states and inviscid ghost states (F planes each; None without
+        boundary faces)."""
         # 1. extrapolate to flux points: one GEMM per block
         ufs = [k.to_fpts(u) for k, u in zip(stages, us)]  # (F, E_t, Pf_t)
         uf2 = flat(ufs)
@@ -730,26 +732,53 @@ def make_face_residual(stages, FA: FaceArrays, ph: Physics, bc_fns=None,
         # same extrapolation, residual_soa.py:1042-1047)
         u_l = read(uf2, FA.slot_l, FA.shape_i)            # (F, *face plane)
         u_r = read(uf2, FA.slot_r, FA.shape_i)
+        u_b = g0_b = None
         if FA.has_bdy:
             u_b = read(uf2, FA.slot_b, FA.shape_b).unbind(0)
             g0_b = bc_fns.ghost_state(u_b, norm_b, 0, ramp)
+        return ufs, u_l, u_r, u_b, g0_b
+
+    def corrected_gradient(us, u_l, u_r, u_b, g0_b, ramp):
+        """Step 3's gradient: the LDG common solution on every face and,
+        per block, the transformed gradient with its face lift and the
+        physical gradient (d, U, F, E) (BlockStages.gradient).  Returns
+        the LDG sign planes, the boundary common solution and the
+        per-block (tg, gr)."""
+        sgn = ldg_sign_p(norm)
+        bcoef = cfg.ldg_beta * sgn
+        u_c = 0.5 * (u_l + u_r) - bcoef * (u_l - u_r)
+        u_c_b = delta_b = None
+        if FA.has_bdy:
+            # boundary LDG common solution (residual_soa.py:1068-1071)
+            u_c_b = bc_fns.ldg_solution(u_b, norm_b, g0_b, ramp)
+            delta_b = torch.stack([c - a for c, a in zip(u_c_b, u_b)])
+        delta = write(u_c - u_l, u_c - u_r, delta_b)
+        return sgn, u_c_b, [k.gradient(k.tgrad(u), block_rows(delta, i))
+                            for i, (k, u) in enumerate(zip(stages, us))]
+
+    def gradient(us, ramp=None):
+        """The LDG-corrected physical gradient (d, U_t, F, E_t) of each
+        block's state: what the viscous residual computes at step 3
+        (residual.py:508-547 of the JAX package, make_gradient_fn)."""
+        _, u_l, u_r, u_b, g0_b = face_states(us, ramp)
+        return [gr for _, gr in corrected_gradient(us, u_l, u_r, u_b, g0_b,
+                                                   ramp)[2]]
+
+    def residual(us, fluc=None, ramp=None, out=None):
+        if fluc is not None:
+            raise NotImplementedError(
+                "hifiles_tpu_torch residual: not ported yet: turbulent-inlet "
+                "fluctuations (fluc)")
+        ufs, u_l, u_r, u_b, g0_b = face_states(us, ramp)
 
         # 3. viscous gradient path
         grs = extras = [None] * len(stages)
         if cfg.viscous:
-            sgn = ldg_sign_p(norm)
-            bcoef = cfg.ldg_beta * sgn
-            u_c = 0.5 * (u_l + u_r) - bcoef * (u_l - u_r)
-            delta_b = None
-            if FA.has_bdy:
-                # boundary LDG common solution (residual_soa.py:1068-1071)
-                u_c_b = bc_fns.ldg_solution(u_b, norm_b, g0_b, ramp)
-                delta_b = torch.stack([c - a for c, a in zip(u_c_b, u_b)])
-            delta = write(u_c - u_l, u_c - u_r, delta_b)
+            sgn, u_c_b, grads = corrected_gradient(us, u_l, u_r, u_b, g0_b,
+                                                   ramp)
             grs, extras, g_fs, qns = [], [], [], []
-            for i, (k, u) in enumerate(zip(stages, us)):
-                tg, gr = k.gradient(k.tgrad(u), block_rows(delta, i))
-                g_f, qn, extra = k.flux_point_viscous(u, ufs[i], tg)
+            for k, u, uf, (tg, gr) in zip(stages, us, ufs, grads):
+                g_f, qn, extra = k.flux_point_viscous(u, uf, tg)
                 grs.append(gr)
                 extras.append(extra)
                 g_fs.append(g_f)
@@ -796,6 +825,7 @@ def make_face_residual(stages, FA: FaceArrays, ph: Physics, bc_fns=None,
                      for i, (k, u, gr, tdisf, o) in enumerate(
                          zip(stages, us, grs, tdisfs, outs)))
 
+    residual.gradient = gradient
     return residual
 
 
@@ -824,4 +854,6 @@ def make_residual_soa(block: ElementBlock, cfg: ResidualConfig, device,
     def residual_soa(u, fluc=None, ramp=None):
         return residual((u,), fluc, ramp)[0]
 
+    residual_soa.gradient = lambda u, ramp=None: residual.gradient((u,),
+                                                                   ramp)[0]
     return residual_soa

@@ -5,7 +5,10 @@ tet block: the "SoA (fast)" chunk and the "SoA featured (fast)" chunk
 (solver.py:380-482), i.e. the
 features of the SoA residual port with boundary conditions and wall models,
 the SVV pre-step filter, shock capture, the BC ramp counter, bulk-momentum
-body forcing and running time averages; fixed dt.  Setup runs once on the
+body forcing and running time averages; fixed, global CFL or per-element
+local time steps (compute_dt, solver.py:570-641); and the diagnostics the
+writers read (the corrected gradient, the shock sensor, the analytic error
+with its gradient row).  Setup runs once on the
 host in numpy; the time loop is a Python loop of RK steps on the
 elements-minor (U, F, E) state.  The featured carry (ramp counter, mass-flux
 memory, simulated time, averages) stays in device tensors of the state's
@@ -32,6 +35,8 @@ from ..ops.operators import (build_pri_ops, build_tensor_ops, build_tet_ops,
 
 from ..backend import select_device
 from ..convert import euf_to_ufe, ufe_to_euf
+from ..models.euler import max_wavespeed
+from ..models.viscous import sutherland_mu
 from ..ops.stabilization import make_shock_capture_soa
 from .bc import make_bc_functions, not_ported
 from .elements import build_element_block
@@ -49,10 +54,7 @@ def not_ported_run(p: RunInput) -> list:
     """Run features this port does not cover yet on any mesh (the
     residual's own are reported by residual_soa.config_missing)."""
     # turbulent inlets, equation 1 (the BC flags are checked per block)
-    missing = not_ported(p, ())
-    if p.dt_type != 0:
-        missing.append(f"dt_type {p.dt_type} (compute_dt)")
-    return missing
+    return not_ported(p, ())
 
 
 def _unsupported(p: RunInput, mesh: MeshData) -> list:
@@ -201,10 +203,12 @@ class BlockLoop:
                 return out
             self._pre_step = pre_step
         # shock capture after every RK stage, in place on each block
-        # (solver.py:197-213, multiblock.py:501-525)
+        # (solver.py:197-213, multiblock.py:501-525); its sensors are the
+        # sensor_fn diagnostics
         post_stage = None
+        self._caps = None
         if p.shock_cap:
-            caps = [make_shock_capture_soa(
+            self._caps = caps = [make_shock_capture_soa(
                 b.ops, p.s0, p.expf_fac, p.expf_order, p.expf_cutoff,
                 p.shock_det_field, self.n_dims, dev, dt_) for b in blocks]
 
@@ -368,23 +372,42 @@ class BlockLoop:
         """The mass flux the forcing remembers from the last step."""
         return float(self._mdot_old)
 
-    def compute_dt(self) -> float:
-        """The time step (solver.py and multiblock.py compute_dt of the JAX
-        package): the deck's fixed dt; the solvers refuse dt_type != 0 when
-        they are built."""
-        return float(self.p.dt)
+    def _sensor_of(self, i):
+        """Block i's shock sensor as a diagnostic: an (E_t, U_t, F) array ->
+        the Persson sensor (E_t,) numpy, from the capture's own sensor
+        (solver.py:196-205 and multiblock.py:505-525 of the JAX
+        package)."""
+        sensor = self._caps[i].sensor
+        return lambda u: sensor(euf_to_ufe(u, self.device, self.dtype)
+                                ).cpu().numpy()
+
+    def _local_dt(self, dt):
+        """A per-element dt -> (the tensor the RK update broadcasts, its
+        minimum as a float); the solver's subclass says which it takes."""
+        raise NotImplementedError(
+            f"hifiles_tpu_torch {type(self).__name__}: a per-element dt; "
+            "the JAX MixedSolver steps every deck with one global dt "
+            "(multiblock.py:843-874)")
 
     def run(self, n_steps: int, dt=None):
         """Advance n_steps RK steps of size dt (default: compute_dt()) and
-        return the state tensor."""
-        dt = self.compute_dt() if dt is None else float(dt)
+        return the state tensor.  ``dt`` is a float, a 0-d tensor, or (on
+        Solver) an (E,) array of per-element steps, dt_type 2's local dt:
+        the RK update takes it per element, while body forcing, the
+        averages and the clock take its minimum, read once per call
+        (solver.py:615-641 of the JAX package)."""
+        dt = self.compute_dt() if dt is None else dt
+        if getattr(dt, "ndim", 0) == 1:
+            dt_rk, dt = self._local_dt(dt)
+        else:
+            dt_rk = dt = float(dt)
         for _ in range(n_steps):
             if self._pre_step is not None:
                 self.u_soa = self._pre_step(self.u_soa)
             if self._forcing:
                 self._bf = self._body_force(self.u_soa, dt)
             self.u_soa, self.reg_soa = self._step(self.u_soa, self.reg_soa,
-                                                  dt)
+                                                  dt_rk)
             if self._featured:
                 self._t_sim += dt
                 self._k += 1.0
@@ -476,13 +499,9 @@ class BlockLoop:
         blocks (ref:src/eles.cpp:5076-5136, ref:src/output.cpp:2052-2164).
 
         Returns (2, n_fields): [solution error, gradient error]; final norms
-        are sqrt() for L2 outside.  The gradient row of the viscous test
-        cases needs the gradient function, not ported yet."""
+        are sqrt() for L2 outside.  The gradient row stays zero here, as on
+        the JAX MixedSolver (multiblock.py:929-949); Solver fills it."""
         p = self.p
-        if p.viscous and p.test_case in (2, 3, 5):
-            raise NotImplementedError(
-                "hifiles_tpu_torch compute_error: gradient error row "
-                "(gradient_fn) not ported yet")
         norm_type = norm_type if norm_type is not None else p.error_norm_type
         out = np.zeros((2, self.n_fields))
         for b, disu_cub, w in self._cubature():
@@ -555,6 +574,9 @@ class Solver(BlockLoop):
                                               self._bc_fns)
         self._setup_loop([self.block], [np.arange(mesh.n_cells)],
                          lambda u, ramp: self.residual_soa(u, None, ramp))
+        self.sensor_fn = self._sensor_of(0) if run_input.shock_cap else None
+        self._h_ref = torch.as_tensor(self.block.h_ref, dtype=dtype,
+                                      device=self.device)
 
         # initial condition at solution points (ref:src/solver.cpp:321-340)
         u0 = initial_condition(run_input, self.block.pos_upts, self.n_fields)
@@ -566,3 +588,82 @@ class Solver(BlockLoop):
     def _state_out(arrays):
         """The one block's array."""
         return arrays[0]
+
+    def compute_dt(self):
+        """The time step (solver.py:570-613 of the JAX package;
+        ref:src/solver.cpp:484-549, ref:src/eles.cpp:1267-1356): dt_type
+        0 the deck's dt; else the CFL limit per element from h_ref and the
+        largest |v| + c, and with viscosity the viscous limit
+        max(4/3, gamma/Pr) mu/rho, computed on the device in the state's
+        dtype: dt_type 1 their global minimum as a 0-d tensor, dt_type 2
+        the per-element (E,) tensor."""
+        p = self.p
+        if p.dt_type == 0:
+            return p.dt
+        d, h_ref, CFL = self.n_dims, self._h_ref, p.CFL
+        u = self.u_soa.unbind(1)
+        lam = max_wavespeed(u, p.gamma, d).amax(dim=0)
+        dt_ele = CFL * h_ref / lam / (2 * p.order + 1)
+        if p.viscous and p.equation == 0:
+            rho = u[0]
+            ke = 0.5 * sum(u[1 + m] ** 2 for m in range(d)) / rho
+            inte = (u[d + 1] - ke) / rho
+            mu = sutherland_mu(inte, p.gamma, p.mu_inf, p.rt_inf, p.c_sth,
+                               p.fix_vis)
+            lam_v = (max(4.0 / 3.0, p.gamma / p.prandtl)
+                     * mu / rho).amax(dim=0)
+            dt_ele = torch.minimum(
+                dt_ele, CFL * 0.25 * h_ref ** 2 / lam_v / (2 * p.order + 1))
+        return dt_ele if p.dt_type == 2 else dt_ele.min()
+
+    def _local_dt(self, dt):
+        """An (E,) per-element dt -> ((1, 1, E) in the state's dtype on the
+        device, broadcast along the (U, F, E) state as the JAX chunk does,
+        solver.py:302-303; its minimum as a float)."""
+        E = self.block.n_eles
+        dt = torch.as_tensor(dt, dtype=self.dtype, device=self.device)
+        if dt.shape != (E,):
+            raise ValueError(f"local dt of shape {tuple(dt.shape)}; the "
+                             f"block has {E} elements")
+        return dt.view(1, 1, E), float(dt.min())
+
+    def gradient_fn(self, u) -> np.ndarray:
+        """The LDG-corrected physical gradient at the solution points of an
+        (E, U, F) state, as (E, U, F, d) numpy in the state's dtype
+        (residual.py:508-547 and solver.py:559-567 of the JAX package): the
+        residual's own gradient stage (residual_soa.make_face_residual),
+        boundaries through bc_fns.ldg_solution."""
+        gr = self.residual_soa.gradient(euf_to_ufe(u, self.device,
+                                                   self.dtype))
+        return np.ascontiguousarray(gr.permute(3, 1, 2, 0).cpu().numpy())
+
+    def compute_error(self, norm_type: int | None = None,
+                      u_grad=None) -> np.ndarray:
+        """BlockLoop.compute_error with the gradient error row of the
+        viscous test cases (solver.py:644-687 of the JAX package;
+        ref:src/eles.cpp:5109-5123, 5185-5280): field 0 only for test
+        cases 2 and 3, every field for 5 (Couette).  ``u_grad``, an
+        (E, U, F) state, is the one whose gradient is held against the
+        analytic one (default: the current state); the reference uses the
+        last RK stage's input state."""
+        out = super().compute_error(norm_type)
+        p = self.p
+        if not (p.viscous and p.test_case in (2, 3, 5)):
+            return out
+        norm_type = norm_type if norm_type is not None else p.error_norm_type
+        b, ops = self.block, self.ops
+        grad_u = np.asarray(self.gradient_fn(self.u if u_grad is None
+                                             else u_grad), dtype=np.float64)
+        grad_cub = np.einsum("cu,eufd->ecfd", ops.opp_vol_cubpts, grad_u)
+        _, grad_a = analytic_solution(p, b.pos_vol_cubpts, self.time,
+                                      self.n_fields)
+        gerr = grad_cub - grad_a
+        if p.test_case in (2, 3):
+            gerr = gerr[..., :1, :]
+        w = ops.w_vol_cubpts[None, :] * b.detjac_vol_cubpts
+        if norm_type == 1:
+            row = np.einsum("ec,ecfd->f", w, np.abs(gerr))
+        else:
+            row = np.einsum("ec,ecfd->f", w, gerr * gerr)
+        out[1, :row.shape[0]] = row
+        return out

@@ -9,6 +9,7 @@ Port of hifiles_tpu/solver/step.py.  adv_type codes: 0 forward Euler,
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 # Carpenter-Kennedy RK45(2N) (ref:data/RK_coeff.dat adv_type==3)
 RK45_A = np.array([
@@ -41,6 +42,14 @@ RK414_B = np.array([
 N_STAGES = {0: 1, 1: 4, 2: 4, 3: 5, 4: 14}
 
 
+def _axpy(y, x, a):
+    """y += a * x in place: a Python float as add_'s alpha, a tensor (a
+    local dt, (1, 1, E), broadcast along the elements) through addcmul_."""
+    if isinstance(a, torch.Tensor):
+        return y.addcmul_(x, a)
+    return y.add_(x, alpha=a)
+
+
 def make_step_fn(residual_fn, adv_type: int, post_stage=None):
     """Build step(u, reg, dt) -> (u, reg) advancing one full time step.
 
@@ -52,12 +61,14 @@ def make_step_fn(residual_fn, adv_type: int, post_stage=None):
     once.  ``reg`` may be None for the first step of a 2N scheme.
     ``post_stage(u)``, e.g. shock capture, runs after every stage update and
     must update ``u`` in place.  Coefficients stay Python floats, so an f32
-    state stays f32."""
+    state stays f32.  ``dt`` is a float, or a tensor in the state's dtype
+    that broadcasts against it (the per-element local dt as a (1, 1, E)
+    plane, as the JAX chunk reshapes it, solver.py:302-303)."""
     ps = post_stage if post_stage is not None else (lambda u: u)
 
     if adv_type == 0:
         def step(u, reg, dt):
-            ps(u.add_(residual_fn(u), alpha=dt))
+            ps(_axpy(u, residual_fn(u), dt))
             return u, reg
         return step
 
@@ -65,20 +76,20 @@ def make_step_fn(residual_fn, adv_type: int, post_stage=None):
         def step(u, reg, dt):
             u0 = u.clone()
             for _ in range(3):
-                ps(u.add_(residual_fn(u), alpha=dt / 3.0))
+                ps(_axpy(u, residual_fn(u), dt / 3.0))
             k = residual_fn(u)
-            ps(u.mul_(0.75).add_(u0, alpha=0.25).add_(k, alpha=dt / 4.0))
+            ps(_axpy(u.mul_(0.75).add_(u0, alpha=0.25), k, dt / 4.0))
             return u, reg
         return step
 
     if adv_type == 2:  # SSP-RK34 (ref:src/eles.cpp:1172-1220)
         def step(u, reg, dt):
             u0 = u.clone()
-            ps(u.add_(residual_fn(u), alpha=dt / 2.0))
-            ps(u.add_(residual_fn(u), alpha=dt / 2.0))
+            ps(_axpy(u, residual_fn(u), dt / 2.0))
+            ps(_axpy(u, residual_fn(u), dt / 2.0))
             k = residual_fn(u)
-            ps(u.div_(3.0).add_(u0, alpha=2.0 / 3.0).add_(k, alpha=dt / 6.0))
-            ps(u.add_(residual_fn(u), alpha=dt / 2.0))
+            ps(_axpy(u.div_(3.0).add_(u0, alpha=2.0 / 3.0), k, dt / 6.0))
+            ps(_axpy(u, residual_fn(u), dt / 2.0))
             return u, reg
         return step
 
@@ -92,7 +103,7 @@ def make_step_fn(residual_fn, adv_type: int, post_stage=None):
             r = u.new_zeros(u.shape) if reg is None else reg
             for a, b in zip(A, Bc):
                 k = residual_fn(u)
-                r.mul_(a).add_(k, alpha=dt)
+                _axpy(r.mul_(a), k, dt)
                 ps(u.add_(r, alpha=b))
             return u, r
         return step

@@ -127,6 +127,28 @@ for mesh, p in ((ht.periodic_mixed_mesh_2d(3, 3, -10, 10, -10, 10),
     assert np.isfinite(s.residual_norm(1)).all(), s.cts
 assert {"hifiles_tpu_torch.solver.multiblock",
         "hifiles_tpu_torch.solver.residual_mixed_soa"} <= set(sys.modules)
+# python -m hifiles_tpu_torch on a tiny deck: 2 steps of the TGV on 3^3
+# hexes, p=1, with plots, history and an ASCII restart
+import os, runpy, tempfile
+from chip_smoke import tgv_deck
+from hifiles_tpu_torch.mesh.gambit import write_gambit
+d = tempfile.mkdtemp()
+write_gambit(ht.periodic_hex_mesh(3, 3, 3), os.path.join(d, "box.neu"))
+with open(os.path.join(d, "run.deck"), "w") as f:
+    f.write(tgv_deck("box.neu", order=1, n_steps=2, monitor_res_freq=1,
+                     plot_freq=2, restart_dump_freq=2))
+sys.argv = ["hifiles_tpu_torch", os.path.join(d, "run.deck"), "--device",
+            "cpu", "--outdir", os.path.join(d, "out")]
+try:
+    runpy.run_module("hifiles_tpu_torch", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+assert sorted(os.listdir(os.path.join(d, "out"))) == [
+    "Mesh_000000002", "Mesh_000000002.pvtu", "Rest_000000002_p0000.dat",
+    "history.plt"], os.listdir(os.path.join(d, "out"))
+assert {"hifiles_tpu_torch.driver", "hifiles_tpu_torch.io.vtu",
+        "hifiles_tpu_torch.io.history",
+        "hifiles_tpu_torch.io.restart"} <= set(sys.modules)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "hifiles_tpu"))
 assert not loaded, loaded
@@ -139,8 +161,9 @@ def test_port_runs_with_jax_blocked():
     Solvers, the walled, forced, averaged channel (with and without a wall
     model), a quad, a tri and a tet Solver, and MixedSolvers on a tri+quad
     box, a wall-modelled tri+quad channel, a wall-modelled prism/tet
-    channel and a prism box, with every import of JAX and of the JAX
-    package hifiles_tpu refused."""
+    channel and a prism box, and runs ``python -m hifiles_tpu_torch`` on a
+    tiny deck on the CPU, with every import of JAX and of the JAX package
+    hifiles_tpu refused."""
     env = dict(os.environ, OMP_NUM_THREADS="1")
     res = subprocess.run([sys.executable, "-c", _NO_JAX, ROOT],
                          capture_output=True, text=True, env=env,

@@ -194,17 +194,28 @@ def equation_1():
 
 def local_dt():
     p, mesh = vortex_input(order=2), mixed_box()
-    p.dt_type = 1
+    p.dt_type, p.CFL = 2, 0.5
     return p, mesh
 
 
-# what the JAX mixed path runs elsewhere (RANS+HLLC on its slot path) or
-# the port has no code for yet: MixedSolver refuses each by name
+def patched():
+    p, mesh = vortex_input(order=2), mixed_box()
+    p.patch, p.patch_type, p.patch_x = 1, 1, 0.0
+    return p, mesh
+
+
+# what no JAX path runs (RANS+HLLC: the deck parsers refuse the pair,
+# config/params.py:467-471), what the JAX MixedSolver leaves out (patch,
+# a per-element dt), or what the port has no code for yet: MixedSolver
+# refuses each by name, when it is built or, for the per-element dt, when
+# it is asked to step with one (dt_type 2 builds: its compute_dt gives one
+# global dt, as the JAX MixedSolver's does)
 RAISES = {
     "rans_hllc": (rans_hllc, "SA-RANS with HLLC"),
     "equation_1": (equation_1, "advection-diffusion"),
     "turbulent_inlet": (turbulent_inlet, "turbulent inlets"),
-    "local_dt": (local_dt, "dt_type"),
+    "local_dt": (local_dt, "per-element dt"),
+    "patch": (patched, "patch"),
 }
 
 
@@ -213,5 +224,6 @@ def test_unsupported_cases_raise(case):
     make, match = RAISES[case]
     p, mesh = make()
     with pytest.raises(NotImplementedError, match=match):
-        hifiles_tpu_torch.MixedSolver(run_input_from(p), mesh_from(mesh),
-                                      device="cpu")
+        s = hifiles_tpu_torch.MixedSolver(run_input_from(p), mesh_from(mesh),
+                                          device="cpu")
+        s.run(1, dt=torch.full((mesh.n_cells,), 1e-4, dtype=torch.float64))

@@ -136,12 +136,17 @@ def test_rans_hllc_raises():
 
 
 def test_local_dt_raises():
+    """dt_type 2 builds and steps with its per-element dt; a local dt
+    whose length is not the block's element count is refused by name."""
     p = tgv_input()
-    p.dt_type = 2
-    with pytest.raises(NotImplementedError, match="dt_type"):
-        hifiles_tpu_torch.Solver(run_input_from(p),
+    p.dt_type, p.CFL = 2, 0.5
+    s = hifiles_tpu_torch.Solver(run_input_from(p),
                                  mesh_from(periodic_hex_mesh(3, 3, 3)),
                                  device="cpu")
+    dt = s.compute_dt()
+    assert dt.shape == (27,) and bool((dt > 0).all())
+    with pytest.raises(ValueError, match="local dt"):
+        s.run(1, dt=dt[:26])
 
 
 def test_boundary_faces_raise():
