@@ -13,6 +13,9 @@ prints no result line):
                paths' shapes (f32 and f64, broadcast and full geometry),
                time both, and compute the least time the card could take
                (bytes moved at 3.35 TB/s, operations at 67 TFLOP/s f32);
+               the d = 2 and mixed-block variants timed again with the L2
+               flushed before every launch (by a write and by a read of
+               256 MB);
   4. small   - the port on the card against the port on the CPU (f64, 2
                steps) for `plain` and each feature configuration (4^3 p=3),
                the wall-bounded ones (the channel's small twin, the
@@ -23,10 +26,16 @@ prints no result line):
                the mixed meshes through MixedSolver (the tri+quad box with
                Smagorinsky LES and with over-integration, the wall-modelled
                tri+quad channel, the wall-modelled prism/tet channel, a
-               prism TGV box);
+               prism TGV box); advection-diffusion on quads, tris, hexes,
+               tets (each with and without over-integration), an AD_WALL
+               quad channel and the tri+quad box; SEM and white-noise
+               inlets on the quad channel and a 4^3 duct and SEM on the
+               tri+quad channel, the inlet's draws one numpy stream
+               replayed on both devices;
   5. reference - the isentropic vortex (16^2 quads, p=3, f64, 100 steps)
-               against the reference binary's L2 error row, and the tet,
-               tri+quad and prism over-integration cases and the
+               against the reference binary's L2 error row, and the 8^3
+               hex, tet, tri+quad and prism over-integration cases, the
+               curved 20-node hex and 15-node prism boxes and the
                wall-modelled prism/tet channel against its L1 residual
                rows;
   6. slices  - the `plain`, `smag`, `overint`, `rans` and `shock` cases of
@@ -38,10 +47,17 @@ prints no result line):
                slices gated on TORCH_GOLDENS; bench.py's `mixed` (the
                vortex on the 96^2 tri+quad box, p=4) and `mixed3d` (the
                wall-modelled prism/tet LES channel, p=2) cases through
-               MixedSolver, gated on bench.GOLDENS; the kernels' launch
-               counts read around each run; the rates of `quad`, `tet`,
-               `mixed` and `mixed3d` beside `plain` from 8 interleaved
-               10-step repeats, and their launches per RK stage;
+               MixedSolver, gated on bench.GOLDENS; `sem` (a WALE LES duct,
+               16^3 hexes, p=4, fed by a 1000-eddy SEM inlet replaying the
+               JAX package's draws) and `advdiff` (the 3-D sine wave, 16^3
+               hexes, p=4) gated on TORCH_GOLDENS (`advdiff` also on its
+               error rows, from the same run in f64); then `sem` again from its initial state with the
+               default device draws, against a laminar-inlet twin, with
+               its inlet's mass flux and the inlet update's device time;
+               the kernels' launch counts read around each run; the rates
+               of `quad`, `tet`, `mixed`, `mixed3d`, `sem` and `advdiff`
+               beside `plain` from 8 interleaved 10-step repeats, and
+               their launches per RK stage;
   7. driver  - `python3 -m hifiles_tpu_torch <deck>` as a subprocess on
                the `plain` case written as a deck and a Gambit file (TGV
                p=4 on 16^3 hexes, f32, 20 steps): its iter-20 row gated on
@@ -114,6 +130,15 @@ PRISM_OVERINT_GOLD = [0.00306439, 0.07352466, 0.07351704, 0.05934145,
                       0.73944568]
 PRISM_TET_WM_GOLD = [0.00000004, 0.00117114, 0.00000670, 0.00087835,
                      0.00000279]
+# and the iter-25 L1 rows of the 8^3 hex box with over-integration
+# (OVERINT_GOLD, :318-330, 1e-5 per entry) and of the curved boxes, 20-node
+# hexes (HEX20_CURVED_GOLD, :418-430, 1e-5) and 15-node prisms
+# (PRISM15_CURVED_GOLD, :439-452, 2e-4 * max(0.05, gold)), all p=3 on 3^3
+OVERINT_GOLD = [0.00064499, 0.04740269, 0.04740269, 0.06241743, 0.10784275]
+HEX20_CURVED_GOLD = [0.00569147, 0.05896665, 0.05973250, 0.06931635,
+                     1.41603482]
+PRISM15_CURVED_GOLD = [0.01114666, 0.12510596, 0.12508644, 0.07261163,
+                       2.78693465]
 # and the Couette case's error.dat rows, solution and gradient L2
 # (tests/test_regression_reference.py:274-275: tests/decks/input_couette_50
 # on ywall_channel_quad_mesh(4, 4, 0, 2, 0, 1), p=3, 50 steps, f64), held
@@ -130,10 +155,39 @@ TORCH_GOLDENS = {
             5.0192843611841405e-02, 6.321338054396550e-02,
             1.1797680043921853e-01],
 }
+# And the `sem` and `advdiff` slices' rows, with the `sem` slice's time step
+# (compute_dt at its initial state, CFL 0.5) and the JAX package's draws for
+# its 20 steps in tests/data/torch_sem_draws.npz, and the compute_error(2)
+# rows (solution, gradient) of the `advdiff` run in f64, where they are
+# discretization error (in f32 the state's rounding outweighs it):
+# `JAX_PLATFORMS=cpu python scripts/gen_torch_goldens.py sem advdiff`
+# (2026-10-16).
+TORCH_GOLDENS.update({
+    "sem": [5.544654069449343e-03, 3.389007923192047e-02,
+            2.073151018085818e-02, 2.177892742176728e-02,
+            3.9334797727837895e-01],
+    "advdiff": [3.6139982474148273e+00],
+    "advdiff_error": [5.0933625432293215e-14, 4.0942964632156793e-10],
+})
+SEM_DT = 0.00363610265776515
+# the `advdiff` slice's time step: the deck's 1e-3 diverges at 16^3 p=4 (the
+# diffusive limit scales as h^2 / (p + 1)^4); 1e-4 keeps the deck's
+# D dt (p + 1)^4 / h^2 of tests/test_adv_diff.py (8^2, p=3) within 2x
+ADVDIFF_DT = 1e-4
+SEM_DRAWS = os.path.join(ROOT, "tests", "data", "torch_sem_draws.npz")
 NEW_SLICES = ["quad", "tet"]
+INLET_SLICES = ["sem", "advdiff"]
+# the `sem` slice's state before its gated run, for the run with the
+# default device draws
+IC_SNAPSHOTS = {}
 # bench.py's mixed-mesh cases, through MixedSolver, gated on bench.GOLDENS
 MIXED_SLICES = ["mixed", "mixed3d"]
 N_RATE_REPEATS = 8
+# the volume kernel's variants timed again with the L2 flushed (their
+# inputs, 9-45 MB, fit the H100's 50 MB of L2), and the flush's size
+L2_FLUSHED = ["ns_2d", "smagorinsky_2d", "rans_2d", "mixed_quad", "mixed_tri",
+              "mixed3d_prism", "mixed3d_tet"]
+FLUSH_BYTES = 256 * 2**20
 # the card's published peaks (H100 SXM data sheet, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -274,6 +328,81 @@ def vortex_input(order=4):
     return p
 
 
+def les_input(inlet_type=2, n_eddy=40, mode=0):
+    """tests/test_turb_inlet.py:13-48's deck with the port's RunInput: WALE
+    LES (C_s 0.5, filter ratio 2), Rusanov, a uniform Mach-0.2 x-flow,
+    p=2, dt 1e-5; the groups of channel_quad_mesh: an inflow (SUB_IN_SIMP,
+    ``inlet_type``: 1 white noise, 2 SEM, with ``n_eddy`` eddies in
+    ``mode``), an outflow (SUB_OUT_SIMP) and the cyclic y faces."""
+    from hifiles_tpu_torch.config.params import (CYCLIC, SUB_IN_SIMP,
+                                                 SUB_OUT_SIMP, BCParams,
+                                                 RunInput)
+    p = RunInput()
+    p.equation, p.viscous, p.LES, p.SGS_model = 0, 1, 1, 1
+    p.C_s, p.filter_ratio, p.order, p.ic_form = 0.5, 2.0, 2, 1
+    p.adv_type, p.riemann_solve_type, p.dt_type, p.dt = 3, 0, 0, 1e-5
+    p.vcjh_scheme_quad = 1
+    p.dy_cyclic = 1.0
+    p.gamma, p.R_gas, p.fix_vis = 1.4, 286.9, 1
+    p.Mach_free_stream, p.T_free_stream = 0.2, 300.0
+    p.rho_free_stream = 1.17723946
+    p.mu_gas = 1.827e-5
+    p.Mach_c_ic, p.T_c_ic, p.rho_c_ic = 0.2, 300.0, 1.17723946
+    p.nx_c_ic, p.ny_c_ic = 1.0, 0.0
+    p.setup_params()
+    p.bc_list = [
+        BCParams(name="Inflow", flag=SUB_IN_SIMP, rho=p.rho_c_ic,
+                 velocity=(p.u_c_ic, 0.0, 0.0), inlet_type=inlet_type,
+                 mode=mode, turb_1=(0.01 * p.u_c_ic * p.uvw_ref) ** 2
+                 if mode == 0 else 0.01, turb_2=10.0, n_eddy=n_eddy,
+                 vis_y=0.0),
+        BCParams(name="Outflow", flag=SUB_OUT_SIMP, p_static=p.p_c_ic,
+                 T_total=p.T_c_ic),
+        BCParams(name="Cyclic", flag=CYCLIC)]
+    return p
+
+
+def les_duct_input(order=4, n_eddy=1000, inlet_type=2):
+    """les_input on duct_mesh's groups (Cyclic, Inflow, Outflow), cyclic
+    with period 2 pi in y and z, at ``order``, with the `sem` slice's time
+    step SEM_DT."""
+    import math
+    p = les_input(inlet_type=inlet_type, n_eddy=n_eddy)
+    inflow, outflow, cyc = p.bc_list
+    p.bc_list = [cyc, inflow, outflow]
+    p.order = order
+    p.dy_cyclic = p.dz_cyclic = 2 * math.pi
+    p.dt = SEM_DT
+    return p
+
+
+def mixed_channel_mesh():
+    """channel_mixed_mesh_2d(4, 2) on [0, 2] x [0, 1]: tris and quads, the
+    groups of les_input."""
+    from hifiles_tpu_torch.mesh.generate import channel_mixed_mesh_2d
+    return channel_mixed_mesh_2d(4, 2, 0.0, 2.0, 0.0, 1.0)
+
+
+def adv_diff_input(order=4, dims=3, over_int=False):
+    """tests/test_adv_diff.py:13-33's deck with the port's RunInput: the
+    decaying sine wave (equation 1, test case 2), Lax-Friedrichs, LDG beta
+    0.5 and tau 1, D = 0.05, dt 1e-3 on the [-1, 1] box, wave speed
+    (1, 0.5) in 2-D and (1, 0.5, 0.25) in 3-D; with over-integration at
+    order + 2 if asked."""
+    from hifiles_tpu_torch.config.params import RunInput
+    p = RunInput()
+    p.equation, p.viscous, p.order, p.ic_form, p.test_case = 1, 1, order, 2, 2
+    p.n_steps, p.adv_type, p.riemann_solve_type = 0, 3, 1
+    p.dt_type, p.dt = 0, 1e-3
+    p.vcjh_scheme_quad = 1
+    p.wave_speed = (1.0, 0.5, 0.25 if dims == 3 else 0.0)
+    p.diff_coeff, p.lambda_lf, p.ldg_beta, p.ldg_tau = 0.05, 1.0, 0.5, 1.0
+    p.dx_cyclic = p.dy_cyclic = p.dz_cyclic = 2.0
+    if over_int:
+        p.over_int, p.over_int_order = 1, order + 2
+    return p
+
+
 def quad_wall_input(rans=False, wall_model=0):
     """The x-periodic quad channel decks of tests/test_residual_soa.py:145,
     :163 (tests/test_rans_viscous_bc.py's SA channel deck, p=1): SA-RANS
@@ -308,11 +437,11 @@ def quad_wall_input(rans=False, wall_model=0):
     return p
 
 
-def quad_wall_mesh():
-    """channel_quad_mesh(8, 4) on [0, 4] x [0, 1]: cyclic in x, walls at
+def quad_wall_mesh(x1=4.0):
+    """channel_quad_mesh(8, 4) on [0, x1] x [0, 1]: cyclic in x, walls at
     y = 0 and y = 1 (the groups of tests/test_residual_soa.py:154-157)."""
     from hifiles_tpu_torch import channel_quad_mesh
-    mesh = channel_quad_mesh(8, 4, 0.0, 4.0, 0.0, 1.0, bc_x="Cyc",
+    mesh = channel_quad_mesh(8, 4, 0.0, x1, 0.0, 1.0, bc_x="Cyc",
                              bc_X="Cyc", bc_y="Wall")
     mesh.bc_id[mesh.bc_id == 1] = 0
     mesh.bc_names = ["Cyc", "unused", "Wall"]
@@ -328,7 +457,10 @@ def slice_case(name):
     96^2 tri+quad box (4,608 quads and 9,216 tris, p=4); `mixed3d`
     (bench.run_mixed3d, bench.py:345-374), the deck
     tests/decks/input_prism_tet_wm_bench on channel_prism_tet_mesh(32, 32,
-    4, 4): 8,192 prisms near the wall and 24,576 tets above, p=2."""
+    4, 4): 8,192 prisms near the wall and 24,576 tets above, p=2; `sem`,
+    les_duct_input on duct_mesh(16) (4,096 hexes, p=4, a 1000-eddy SEM
+    inlet on its 256 x- faces); `advdiff`, adv_diff_input on the 16^3 box
+    [-1, 1]^3 (4,096 hexes, p=4, one field) with dt ADVDIFF_DT."""
     from hifiles_tpu_torch import (RunInput, channel_prism_tet_mesh,
                                    periodic_hex_mesh, periodic_mixed_mesh_2d,
                                    periodic_quad_mesh, periodic_tet_mesh)
@@ -344,6 +476,12 @@ def slice_case(name):
         return (RunInput.from_deck(os.path.join(DECKS,
                                                 "input_prism_tet_wm_bench")),
                 channel_prism_tet_mesh(32, 32, 4, 4, x1=2.0, y1=1.0, z1=1.0))
+    if name == "sem":
+        return les_duct_input(order=4, n_eddy=1000), duct_mesh(16)
+    if name == "advdiff":
+        p = adv_diff_input(order=4)
+        p.dt = ADVDIFF_DT
+        return p, periodic_hex_mesh(16, 16, 16, -1, 1, -1, 1, -1, 1)
     return tgv_input(order=4), periodic_tet_mesh(12, 12, 12)
 
 
@@ -464,6 +602,64 @@ def small_types():
     }
 
 
+def small_adv_diff():
+    """name -> (deck, mesh) of the card-vs-CPU advection-diffusion runs:
+    the sine wave on quads (4^2, p=3), tris (3^2, p=3), hexes (3^3, p=2)
+    and tets (2^3, p=2), each with and without over-integration; between
+    AD_WALL walls on the x-periodic quad channel (8 x 4, p=2); on the
+    tri+quad box (3^2, p=2) through MixedSolver."""
+    from hifiles_tpu_torch import (periodic_hex_mesh, periodic_mixed_mesh_2d,
+                                   periodic_quad_mesh, periodic_tet_mesh)
+    from hifiles_tpu_torch.config.params import AD_WALL, CYCLIC, BCParams
+    box = (-1, 1, -1, 1, -1, 1)
+    meshes = {"quad": (2, 3, lambda: periodic_quad_mesh(4, 4, *box[:4])),
+              "tri": (2, 3, lambda: periodic_tri_mesh(3, 3, *box[:4])),
+              "hex": (3, 2, lambda: periodic_hex_mesh(3, 3, 3, *box)),
+              "tet": (3, 2, lambda: periodic_tet_mesh(2, 2, 2, *box))}
+    cases = {}
+    for name, (dims, order, mesh) in meshes.items():
+        for over in (False, True):
+            cases[f"advdiff_{name}" + ("_over_int" if over else "")] = (
+                adv_diff_input(order, dims, over), mesh())
+    p = adv_diff_input(order=2, dims=2)
+    p.bc_list = [BCParams(name="Cyc", flag=CYCLIC),
+                 BCParams(name="CycX", flag=CYCLIC),
+                 BCParams(name="Wall", flag=AD_WALL)]
+    mesh = quad_wall_mesh(x1=2.0)
+    cases["advdiff_ad_wall"] = (p, mesh)
+    cases["advdiff_tri_quad"] = (adv_diff_input(order=2, dims=2),
+                                 periodic_mixed_mesh_2d(3, 3, *box[:4]))
+    return cases
+
+
+def small_inlets():
+    """name -> (deck, mesh) of the card-vs-CPU turbulent-inlet runs: SEM
+    (40 eddies) and white noise on les_input's quad channel (8 x 4, p=2)
+    and on a 4^3 duct (p=2), SEM (8 eddies) on the tri+quad channel
+    through MixedSolver."""
+    from hifiles_tpu_torch import channel_quad_mesh
+    channel = lambda: channel_quad_mesh(8, 4, 0.0, 2.0, 0.0, 1.0)
+    return {
+        "sem_channel": (les_input(2), channel()),
+        "white_noise_channel": (les_input(1), channel()),
+        "sem_duct": (les_duct_input(order=2, n_eddy=40), duct_mesh(4)),
+        "white_noise_duct": (les_duct_input(order=2, n_eddy=40,
+                                            inlet_type=1), duct_mesh(4)),
+        "sem_tri_quad": (les_input(2, n_eddy=8), mixed_channel_mesh()),
+    }
+
+
+def numpy_draws(inlet, n_steps, seed=0):
+    """One numpy stream of a turbulent inlet's draws for n_steps (standard
+    normal for white noise, uniform [0, 1) for SEM), the same on every
+    device."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape) if inlet.inlet_type == 1
+            else rng.random(shape)
+            for _ in range(n_steps) for shape in inlet.draw_shapes]
+
+
 def make_solver(p, mesh, config, device, dtype):
     """The port's Solver for a deck, or its MixedSolver for a mesh of
     several element types or of prisms (as the JAX package's command-line
@@ -500,6 +696,26 @@ def blocks_of(s):
     from hifiles_tpu_torch import CTYPE_NAMES
     return ", ".join(f"{CTYPE_NAMES[b.ops.ele_type]} E={b.n_eles} "
                      f"U={b.ops.n_upts}" for b in s._blocks)
+
+
+def cuda_ms_flushed(fn, write, n=N_TIMED, repeats=5):
+    """cuda_ms of fn() with the L2 cache flushed before every call: the
+    time of n (flush, fn()) pairs less that of n flushes.  A flush writes
+    FLUSH_BYTES (more than the H100's 50 MB of L2), leaving dirty lines
+    that fn()'s misses must write back, as a stage's earlier kernels leave
+    them; or, ``write`` false, reads them, leaving clean lines."""
+    import torch
+    buf = torch.ones(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    total = torch.empty((), dtype=torch.float32, device="cuda")
+    flush = ((lambda: buf.fill_(1.0)) if write
+             else (lambda: torch.sum(buf, 0, out=total)))
+
+    def both():
+        flush()
+        fn()
+    out = cuda_ms(both, n, repeats) - cuda_ms(flush, n, repeats)
+    del buf, total
+    return out
 
 
 def cuda_ms(fn, n=N_TIMED, repeats=5):
@@ -595,7 +811,7 @@ VARIANTS = [
          path="overint"),
     dict(name="viscous_only", F=5, prm=dict(inviscid=False),
          path="overint"),
-    dict(name="wale", F=5, prm=dict(sgs=1), path="wale"),
+    dict(name="wale", F=5, prm=dict(sgs=1), path="sem"),
     dict(name="added_flux", F=5, prm={}, extra=True, path="similarity"),
     dict(name="sutherland", F=5, prm=dict(fix_vis=0), path="sutherland"),
     # as the channel launches it: geometry and the SGS cutoff broadcast
@@ -733,6 +949,11 @@ def phase_kernel():
                 if dtype == torch.float32 and geo == geos[0]:
                     ms = cuda_ms(lambda: volume_tdisf(*args))
                     plain_ms = cuda_ms(lambda: volume_tdisf_ref(*args))
+                    flushed = None
+                    if v["name"] in L2_FLUSHED:
+                        flushed = [cuda_ms_flushed(
+                            lambda: volume_tdisf(*args), write)
+                            for write in (True, False)]
                     nbytes = volume_bytes(*args)
                     ops = volume_ops(args)
                     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -743,11 +964,19 @@ def phase_kernel():
                              f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s "
                              f"reached), {ops / 1e6:.1f} M ops (bound "
                              f"{ops_ms:.4f} ms at 67 TFLOP/s)")
+                    if flushed is not None:
+                        line += "".join(
+                            f"; L2 flushed by a {how} {ms_:.4f} ms "
+                            f"({bytes_ms / ms_:.3f} of the bytes bound)"
+                            for how, ms_ in zip(("write", "read"), flushed))
                     recs[v["name"]] = dict(
                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
                         bound_ms=max(bytes_ms, ops_ms),
                         bound_by="bytes" if bytes_ms >= ops_ms
                         else "operations", library_ms=None)
+                    if flushed is not None:
+                        recs[v["name"]].update(l2_write_flushed_ms=flushed[0],
+                                               l2_read_flushed_ms=flushed[1])
                 log(line)
                 if not err <= bound:
                     raise AssertionError(
@@ -760,24 +989,34 @@ def phase_kernel():
 def phase_small(counts):
     """The port on the card against the port on the CPU (f64, 2 steps) for
     each configuration of SMALL (4^3 p=3), of small_bounded(), of
-    small_types() and of small_mixed(): the whole slice, kernel included,
-    at 1e-10 relative (the running averages too).  Adds each card run's
-    launch counts to ``counts``."""
+    small_types(), of small_mixed(), of small_adv_diff() and of
+    small_inlets(): the whole slice, kernel included, states at 1e-12
+    relative (the running averages too), residual rows at 1e-10.  Adds
+    each card run's launch counts to ``counts``."""
     import numpy as np
     import torch
     from hifiles_tpu_torch import periodic_hex_mesh
+    from hifiles_tpu_torch.solver.turb_inlet import ReplayDraws
     from hifiles_tpu_torch.solver.volume import volume_tdisf
     cases = {name: (tgv_input(order=3, config=name, **attrs),
                     periodic_hex_mesh(4, 4, 4))
              for name, attrs in SMALL.items()}
     walled = small_bounded()
-    bounded = set(walled) | {"mixed_channel_wm1", "prism_tet_wm"}
+    inlets = small_inlets()
+    bounded = (set(walled) | set(inlets)
+               | {"mixed_channel_wm1", "prism_tet_wm", "advdiff_ad_wall"})
     cases.update(walled)
     cases.update(small_types())
     cases.update(small_mixed())
+    cases.update(small_adv_diff())
+    cases.update(inlets)
     for name, (p, mesh) in cases.items():
         gpu = make_solver(p, mesh, name, "cuda", torch.float64)
         cpu = make_solver(p, mesh, name, "cpu", torch.float64)
+        if name in inlets:
+            draws = numpy_draws(cpu.turb_inlet, 2)
+            for s in (gpu, cpu):
+                s.set_inlet_draws(ReplayDraws(draws, s.device, s.dtype))
         volume_tdisf.by_variant.clear()
         gpu.run(2, dt=p.dt)
         torch.cuda.synchronize()
@@ -802,8 +1041,8 @@ def phase_small(counts):
             f"after 2 steps: state rel err {err:.3e}, residual row rel err "
             f"{rerr:.3e}, averages rel err {aerr:.3e}; launches "
             f"{run_counts}")
-        if not (np.isfinite(ug).all() and err < 1e-10 and rerr < 1e-10
-                and aerr < 1e-10):
+        if not (np.isfinite(ug).all() and err < 1e-12 and rerr < 1e-10
+                and aerr < 1e-12):
             raise AssertionError(f"{name}: port on the card disagrees with "
                                  "the port on the CPU")
         counts[name] = run_counts
@@ -828,15 +1067,19 @@ def last_stage_residual(s, n_steps, dt):
 def phase_reference(counts):
     """The port on the card in f64 against the reference HiFiLES binary:
     the isentropic vortex's L2 error row (VORTEX_L2_GOLD, 1e-10 per entry)
-    and the L1 monitor rows of the tet, tri+quad and prism over-integration
-    cases and of the wall-modelled prism/tet channel (TET_OVERINT_GOLD,
-    MIX2D_OVERINT_GOLD, PRISM_OVERINT_GOLD, PRISM_TET_WM_GOLD)."""
+    and the L1 monitor rows of the hex, tet, tri+quad and prism
+    over-integration cases, of the curved quadratic hex and prism boxes
+    and of the wall-modelled prism/tet channel (OVERINT_GOLD,
+    TET_OVERINT_GOLD, MIX2D_OVERINT_GOLD, PRISM_OVERINT_GOLD,
+    HEX20_CURVED_GOLD, PRISM15_CURVED_GOLD, PRISM_TET_WM_GOLD)."""
     import numpy as np
     import torch
     from hifiles_tpu_torch import (RunInput, Solver, channel_prism_tet_mesh,
-                                   periodic_mixed_mesh_2d,
+                                   periodic_hex_mesh, periodic_mixed_mesh_2d,
                                    periodic_prism_mesh, periodic_quad_mesh,
                                    periodic_tet_mesh)
+    from hifiles_tpu_torch.mesh.generate import (periodic_curved_hex20_mesh,
+                                                 periodic_curved_prism15_mesh)
     from hifiles_tpu_torch.solver.volume import volume_tdisf
     p = RunInput.from_deck(os.path.join(DECKS, "input_vortex_parity"))
     s = Solver(p, periodic_quad_mesh(16, 16, -5, 5, -5, 5), device="cuda",
@@ -858,6 +1101,15 @@ def phase_reference(counts):
 
     pi = np.pi
     rows = [
+        ("hex over-int 8^3", "input_tgv8_overint_25",
+         lambda: periodic_hex_mesh(8, 8, 8), 25, OVERINT_GOLD,
+         lambda g: np.full_like(g, 1e-5)),
+        ("curved hex20 3^3", "input_hex20_curved_25",
+         lambda: periodic_curved_hex20_mesh(3, 3, 3), 25, HEX20_CURVED_GOLD,
+         lambda g: np.full_like(g, 1e-5)),
+        ("curved prism15 3^3", "input_prism15_curved_25",
+         lambda: periodic_curved_prism15_mesh(3, 3, 3), 25,
+         PRISM15_CURVED_GOLD, lambda g: 2e-4 * np.maximum(0.05, g)),
         ("tet over-int 3^3", "input_tet_overint_25",
          lambda: periodic_tet_mesh(3, 3, 3), 25, TET_OVERINT_GOLD,
          lambda g: 2e-4 * np.maximum(0.05, g)),
@@ -888,23 +1140,42 @@ def phase_reference(counts):
 
 def slice_gate(name):
     """(golden row, rtol per row) of a slice: the row of TORCH_GOLDENS
-    (`quad`, `tet`) or bench.GOLDENS, at bench.GATE_RTOL's rtol."""
+    (`quad`, `tet`, `sem`, `advdiff`) or bench.GOLDENS, at
+    bench.GATE_RTOL's rtol."""
     import bench
     gold = TORCH_GOLDENS.get(name) or bench.GOLDENS[name]
     return gold, [bench.GATE_RTOL.get(name, GATE_RTOL)] * len(gold)
 
 
+def sem_draws():
+    """The JAX package's draws for the `sem` slice's 20 steps (two uniform
+    (1000, 3) arrays per step), in the order the inlet takes them."""
+    import numpy as np
+    with np.load(SEM_DRAWS) as f:
+        if float(f["dt"]) != SEM_DT:
+            raise AssertionError(f"{SEM_DRAWS} holds dt {float(f['dt'])}, "
+                                 f"SEM_DT is {SEM_DT}")
+        return [a for step in f["draws"] for a in step]
+
+
 def phase_slice(card, name, counts):
     """One slice on the card at full width through the port's entry points
     (10 + 10 f32 steps, the bench protocol), gated row by row on
-    slice_gate(name); records its launch counts by variant in ``counts``
+    slice_gate(name) (`advdiff` also its compute_error(2) rows, from the
+    same run in f64; `sem`
+    replaying the JAX package's draws, its initial state kept in
+    IC_SNAPSHOTS); records its launch counts by variant in ``counts``
     and returns the solver and its deck."""
     import numpy as np
     import torch
+    from hifiles_tpu_torch.solver.turb_inlet import ReplayDraws
     from hifiles_tpu_torch.solver.volume import volume_tdisf
     p, mesh = slice_case(name)
     t0 = time.perf_counter()
     s = make_solver(p, mesh, name, "cuda", torch.float32)
+    if name == "sem":
+        s.set_inlet_draws(ReplayDraws(sem_draws(), s.device, s.dtype))
+        IC_SNAPSHOTS[name] = s.snapshot()
     torch.cuda.synchronize()
     dof = s.dof
     log(f"slice {name}: setup {time.perf_counter() - t0:.2f} s "
@@ -937,13 +1208,78 @@ def phase_slice(card, name, counts):
                     counts[name + ":blocks"].items()))
     if not (np.isfinite(row).all() and np.all(rel < rtol)):
         raise AssertionError(f"{name} residual row off the golden: {row}")
-    # every block's volume stage on every RK stage of the 20 steps
-    need = (10 * 2 * s.n_stages * len(s._blocks)
-            * (2 if name == "overint" else 1))
+    if name == "advdiff":
+        # the same 10 + 10 steps in f64: the error against the analytic
+        # wave
+        s64 = make_solver(p, mesh, name, "cuda", torch.float64)
+        s64.run(10, dt=p.dt)
+        s64.run(10, dt=p.dt)
+        err = s64.compute_error(2)[:, 0]
+        del s64
+        gold = np.asarray(TORCH_GOLDENS["advdiff_error"])
+        rel = np.abs(err - gold) / np.abs(gold)
+        log(f"slice advdiff f64 compute_error(2) rows (solution, gradient) "
+            f"[{', '.join(f'{v:.12e}' for v in err)}], golden "
+            f"{list(map(float, gold))}, rel err "
+            f"{[float(f'{r:.3e}') for r in rel]} (gate {GATE_RTOL})")
+        if not (np.isfinite(err).all() and np.all(rel < GATE_RTOL)):
+            raise AssertionError(f"advdiff error rows off the golden: {err}")
+    # every block's volume stage on every RK stage of the 20 steps, and
+    # the monitor's (equation 1's scalar volume flux is plain torch)
+    need = 0 if name == "advdiff" else (
+        (10 * 2 * s.n_stages + 1) * len(s._blocks)
+        * (2 if name == "overint" else 1))
     if launches < need:
         raise AssertionError(f"volume_tdisf launched {launches} times on "
                              f"the {name} slice, expected >= {need}")
+    if name == "sem":
+        wale = next(v["key"] for v in VARIANTS if v["name"] == "wale")
+        if counts[name].get(wale, 0) < need:
+            raise AssertionError(f"volume_tdisf[wale] launched "
+                                 f"{counts[name].get(wale, 0)} times on the "
+                                 f"sem slice, expected >= {need}")
     return s, p
+
+
+def phase_sem(card, s, p):
+    """The `sem` slice again from its initial state with the default
+    draws (a torch.Generator on the card seeded with 0), 20 f32 steps,
+    ungated: the state stays finite; its momentum differs from a twin
+    with a laminar inlet (inlet_type 0) by more than 1e-8 and less than
+    half the inflow velocity (tests/test_turb_inlet.py:56-75); the
+    fluctuations of its last step carry a mass flux below 1e-6 of their
+    scale.  Then the inlet update's device time per step, the inlet rows'
+    extrapolation included.  The solver keeps the device draws."""
+    import numpy as np
+    import torch
+    from hifiles_tpu_torch.solver.turb_inlet import DeviceDraws
+    s.restore(IC_SNAPSHOTS.pop("sem"))
+    s.set_inlet_draws(DeviceDraws(0, s.device, s.dtype))
+    s.run(20, dt=p.dt)
+    lam_p, mesh = slice_case("sem")
+    lam_p.bc_list[1].inlet_type = 0
+    lam = make_solver(lam_p, mesh, "sem", "cuda", torch.float32)
+    if lam.turb_inlet is not None:
+        raise AssertionError("the laminar twin built a turbulent inlet")
+    lam.run(20, dt=p.dt)
+    u, u_lam = s.u, lam.u
+    diff = float(np.abs(u[..., 1:4] - u_lam[..., 1:4]).max())
+    mf, scale = s.turb_inlet.mass_flux()
+    log(f"sem device draws, 20 steps: state finite {np.isfinite(u).all()}; "
+        f"max |momentum - laminar twin's| {diff:.6e} (gate (1e-8, "
+        f"{0.5 * abs(p.u_c_ic):.6e})); inlet mass flux {mf:.6e} of "
+        f"{scale:.6e} ({mf / scale:.3e}, gate 1e-6)")
+    if not (np.isfinite(u).all() and 1e-8 < diff < 0.5 * abs(p.u_c_ic)
+            and mf < 1e-6 * scale):
+        raise AssertionError("sem with the device draws failed its checks")
+    del lam
+    ti, state = s.turb_inlet, s._ti_state
+    ms = cuda_ms(lambda: ti.update(state, s._fpt_rows(s.u_soa), p.dt))
+    rows = cuda_ms(lambda: s._fpt_rows(s.u_soa))
+    log(f"sem inlet update {ms * 1e3:.2f} us per step on the card (of which "
+        f"the flux-point extrapolation {rows * 1e3:.2f} us; {ti.n_eddy} "
+        f"eddies, {ti.c.wdA.size} inlet points, distance tensor "
+        f"3 x {ti.c.wdA.size} x {ti.n_eddy} x 3); on [{card}]")
 
 
 def phase_channel(card, counts):
@@ -1362,7 +1698,8 @@ def main():
     # `plain` beside the new slices: the same host in the same turns
     runs = {"plain": runs["plain"]}
     runs.update((name, phase_slice(card, name, counts))
-                for name in NEW_SLICES + MIXED_SLICES)
+                for name in NEW_SLICES + MIXED_SLICES + INLET_SLICES)
+    phase_sem(card, *runs["sem"])
     rates = phase_rates(card, runs)
     phase_driver(card, runs["plain"][0], rates["plain"])
     phase_diagnostics(card)

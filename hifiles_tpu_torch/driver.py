@@ -231,6 +231,13 @@ def main(argv=None):
                     write_restart_ascii(outdir, sync(), step=i)
                 else:
                     write_restart(outdir, sync(), step=i)
+                if getattr(solver, "turb_inlet", None) is not None \
+                        and solver.turb_inlet.inlet_type == 2:
+                    # the eddies' dump, which no run reads back: the JAX
+                    # driver never calls read_sem_restart either
+                    from .io.restart import write_sem_restart
+                    write_sem_restart(outdir, i, solver.turb_inlet,
+                                      solver._ti_state, p)
 
     if p.test_case:
         err = sync().compute_error()

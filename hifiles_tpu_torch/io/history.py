@@ -3,8 +3,11 @@
 ref:src/eles.cpp:5485-5627 CalcIntegralQuantities).
 
 Copied from hifiles_tpu/io/history.py (lines 1-122) unchanged but for
-this paragraph: the port imports nothing of hifiles_tpu, and the relative
-imports resolve to the port's io.vtu and io.forces.
+this paragraph and one repair: the port imports nothing of hifiles_tpu,
+the relative imports resolve to the port's io.vtu and io.forces, and
+``integral_quantities`` returns at once when no quantity is asked, where
+the JAX copy first reads a pressure from the state and so fails on every
+monitored advection-diffusion deck (one scalar field).
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ def integral_quantities(solver, names: list[str]) -> dict[str, float]:
     (ref:src/eles.cpp:5545-5616).  Integrated at solution points with the
     quadrature weights (the reference integrates at volume cubature
     points; identical for Gauss solution points)."""
+    if not names:
+        return {}
     if hasattr(solver, "cts"):      # MixedSolver: accumulate per block
         from ..io.vtu import _MixedBlockView
         out = {n: 0.0 for n in names}

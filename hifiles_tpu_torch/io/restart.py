@@ -10,14 +10,15 @@ element type present ("TRIS"/"QUADS"/"TETS"/"PRIS"/"HEXAS") holding the 1-D
 solution-point coordinates (tensor types) used for cross-order
 re-interpolation on read (opp_r, ref:src/eles.cpp:3692-3710).
 
-Copied from hifiles_tpu/io/restart.py (lines 1-177 and 230-287) unchanged
-but for this paragraph and the readers' last step: a reader hands the state
-to ``solver.set_state(u, zeros, time)``, which also clears the RK register
-and resets the featured carry (the ramp counter to 1, the forcing's
-mass-flux memory to body_force_mdot0, the averaging time and the averages
-to 0), as a freshly built JAX solver holds them after its read.  The
-operators of a cross-order read come from the port's solver.build_ops.
-The SEM eddy restart (:179-227) comes with the turbulent inlets.
+Copied from hifiles_tpu/io/restart.py unchanged but for this paragraph and
+the readers' last step: a reader hands the state to ``solver.set_state(u,
+zeros, time)``, which also clears the RK register and resets the featured
+carry (the ramp counter to 1, the forcing's mass-flux memory to
+body_force_mdot0, the averaging time and the averages to 0), as a freshly
+built JAX solver holds them after its read.  The operators of a
+cross-order read come from the port's solver.build_ops.  The SEM eddy
+restart (:179-227) writes the same bytes; its reader keeps the inlet's
+draw object where the JAX reader keeps its key.
 """
 
 from __future__ import annotations
@@ -181,6 +182,58 @@ def read_restart_ascii(path: str, solver) -> float:
     solver.set_state(u, np.zeros_like(u), time)
     return time
 
+
+
+def write_sem_restart(directory: str, step: int, turb_inlet,
+                      ti_state, run_input) -> str:
+    """SEM eddy-state restart ``sem_files/sem_files_%09d.dat``
+    (ref:src/bdy_inters.cpp:2227-2276 write_sem_restart)."""
+    bc = next(b for b in run_input.bc_list
+              if getattr(b, "inlet_type", 0) == 2)
+    d = os.path.join(directory, "sem_files")
+    os.makedirs(d, exist_ok=True)
+    path = os.path.join(d, f"sem_files_{step:09d}.dat")
+    eddy_pos = np.asarray(ti_state[0].cpu(), dtype=np.float64)
+    sgn = np.asarray(ti_state[1].cpu(), dtype=np.float64)
+    with open(path, "w") as f:
+        f.write(f"{bc.mode}\n{float(bc.vis_y)!r}\n")
+        if bc.mode == 0:
+            f.write(f"{float(bc.turb_1)!r} {float(bc.turb_2)!r}\n")
+        else:
+            f.write(f"{float(bc.turb_1)!r}\n")
+        f.write(f"{turb_inlet.n_eddy}\n")
+        for row in eddy_pos:
+            f.write(" ".join(f"{x:.12e}" for x in row) + "\n")
+        for row in sgn:
+            f.write(" ".join(str(int(x)) for x in row) + "\n")
+    return path
+
+
+def read_sem_restart(directory: str, step: int, solver) -> bool:
+    """Load SEM eddy positions/signs into the solver's inlet state
+    (ref:src/bdy_inters.cpp:2278-2320).  Returns False if absent."""
+    import torch
+    path = os.path.join(directory, "sem_files", f"sem_files_{step:09d}.dat")
+    if not os.path.exists(path) or solver.turb_inlet is None:
+        return False
+    with open(path) as f:
+        toks = f.read().split()
+    it = iter(toks)
+    mode = int(next(it))
+    next(it)                           # vis_y
+    next(it)                           # turb_1
+    if mode == 0:
+        next(it)                       # turb_2
+    n_eddy = int(next(it))
+    eddy = np.array([float(next(it)) for _ in range(3 * n_eddy)]
+                    ).reshape(n_eddy, 3)
+    sgn = np.array([float(next(it)) for _ in range(3 * n_eddy)]
+                   ).reshape(n_eddy, 3)
+    draws = solver._ti_state[2]
+    as_t = lambda a: torch.as_tensor(a, dtype=solver.dtype,
+                                     device=solver.device)
+    solver._ti_state = (as_t(eddy), as_t(sgn), draws)
+    return True
 
 
 def restart_interp(run_input, ct: int, order_rest: int,

@@ -7,10 +7,13 @@ Writes per-rank ``<name>_%09d/<name>_%09d_p%04d.vtu`` plus a rank-0
 q_criterion, sensor.
 
 Copied from hifiles_tpu/io/vtu.py (lines 1-317) unchanged but for this
-paragraph and one repair: the gradient the diagnostics read is computed for
+paragraph and two repairs: the gradient the diagnostics read is computed for
 ``scaled_q_criterion`` too, which the JAX writer leaves out (:231-232), so
-that field asked alone no longer raises.  ``solver.sensor_fn`` is the
-port's (an (E, U, F) array -> the (E,) sensor).
+that field asked alone no longer raises; and ``diagnostic_fields`` returns
+at once when no field is asked, where the JAX copy first reads a pressure
+from the state and so fails on every advection-diffusion deck (one scalar
+field) in the vtu and tecplot writers.  ``solver.sensor_fn`` is the port's
+(an (E, U, F) array -> the (E,) sensor).
 """
 
 from __future__ import annotations
@@ -122,6 +125,8 @@ def _plot_points(ele_type: int, p_res: int):
 def diagnostic_fields(solver, u_ppts, grad_ppts, fields):
     """Named diagnostic fields at plot points
     (ref:src/eles.cpp:3885-3983)."""
+    if not fields:
+        return {}
     p = solver.p
     nd = solver.n_dims
     rho = u_ppts[..., 0]

@@ -17,8 +17,11 @@ boundary column takes its candidate without a mask.
 Unlike the JAX closures, which each rebuild the ghost states they need, the
 functions here take the sol_spec 0 ghost state and the LDG common solution
 from the caller, so the residual computes each once per stage (the numbers
-are the same).  The turbulent inlet's fluctuations (``fluc``), AD_WALL and
-advection-diffusion are not ported.
+are the same); the turbulent inlet's fluctuations (``fluc``) enter that
+ghost state.  Under advection-diffusion (equation 1) every ghost state is
+zero, whatever the flag (bc.py:130-132 of the JAX package; the AD_WALL
+Dirichlet state, ref:src/bdy_inters.cpp:1011-1018), and the common fluxes
+are Lax-Friedrichs and the scalar diffusive flux.
 """
 
 from __future__ import annotations
@@ -32,8 +35,7 @@ from ..config.params import (AD_WALL, ADIABAT_WALL, CHAR, ISOTHERM_WALL,
                              SUP_OUT, RunInput)
 
 from ..models.wall_model import wall_stress_flux
-from .residual_soa import (HLLC, ROEM, RUSANOV, _normal_flux_p, hllc_p,
-                           roem_p, rusanov_p)
+from .residual_soa import (_normal_flux_p, adv_diff_flux_p, riemann_of)
 from .volume import visc_flux_p
 
 WALL_FLAGS = (SLIP_WALL, ISOTHERM_WALL, ADIABAT_WALL, AD_WALL,
@@ -98,19 +100,6 @@ def build_wm_tables(block, use_wm_face: np.ndarray):
     return wm_ele, wm_upt, wm_dist
 
 
-def not_ported(run_input: RunInput, flags) -> list:
-    """Boundary features of ``run_input`` this port does not cover yet, for
-    the BC flags present on a block."""
-    missing = []
-    if run_input.equation == 1 or AD_WALL in flags:
-        missing.append("AD_WALL and advection-diffusion (equation 1)")
-    if run_input.LES and any(b.flag in INFLOW_FLAGS and b.inlet_type != 0
-                             for b in run_input.bc_list):
-        # the condition of turb_inlet.inlet_host_setup (turb_inlet.py:70)
-        missing.append("turbulent inlets (inlet_type > 0)")
-    return missing
-
-
 class BCFunctions:
     """The boundary side of the face stage.
 
@@ -127,7 +116,6 @@ class BCFunctions:
         self.gamma = rcfg.gamma
         P = _pack_params(run_input, bcid, d)
         self.flags = sorted(set(int(f) for f in np.unique(P["flag"])))
-        self.missing = not_ported(run_input, self.flags)
         plane = lambda a: torch.as_tensor(np.asarray(a)[None, :],
                                           dtype=dtype, device=device)
         self.P = {k: ([plane(v[:, m]) for m in range(d)] if v.ndim == 2
@@ -146,6 +134,7 @@ class BCFunctions:
         # True / False when uniform over the faces, else a (1, Fb) mask
         self._is_wall = mask_of(np.isin(flag, WALL_FLAGS))
         self._zero_grad = mask_of(np.isin(flag, ZERO_GRAD_FLAGS))
+        self._inflow = mask_of(np.isin(flag, INFLOW_FLAGS))
         self._use_wm = mask_of(P["use_wm"] > 0)
         self.wall_flags = [f for f in self.flags if f in WALL_FLAGS]
         # inviscid runs use the dimensional gas constant
@@ -155,8 +144,8 @@ class BCFunctions:
         self.mu_tilde_inf = run_input.mu_tilde_inf
         self.has_ramp = any(getattr(b, "pressure_ramp", 0)
                             for b in run_input.bc_list)
-        self.riemann = {RUSANOV: rusanov_p, ROEM: roem_p,
-                        HLLC: hllc_p}.get(rcfg.riemann_solve_type)
+        self.scalar = rcfg.equation == 1
+        self.riemann = riemann_of(rcfg, d)
         # the boundary viscous flux carries no SA constants beyond the
         # defaults and no SGS term (bc.py:413-417 of the JAX package)
         self.visc_kw = dict(gamma=rcfg.gamma, prandtl=rcfg.prandtl,
@@ -191,12 +180,18 @@ class BCFunctions:
     def _energy(self, rho, v, p):
         return p / (self.gamma - 1.0) + 0.5 * rho * sum(vm * vm for vm in v)
 
-    def ghost_state(self, u_l, norm, sol_spec, ramp=None, flags=None):
+    def ghost_state(self, u_l, norm, sol_spec, ramp=None, flags=None,
+                    fluc=None):
         """Vectorised set_boundary_conditions (bc.py:121-321 of the JAX
         package; ref:src/bdy_inters.cpp:340-1019) for the flags ``flags``
         (default: every flag on the block); points of other flags keep
         u_l.  ``ramp``: the iteration counter for SUB_IN_CHAR ramping
-        (ref::482-509), a 0-d tensor, or None."""
+        (ref::482-509), a 0-d tensor, or None.  ``fluc``: the turbulent
+        inlet's velocity fluctuations (d, *plane), added as rho_r * fluc
+        to the momentum of the inflow flags (ref:src/bdy_inters.cpp:
+        250-254).  Zero under equation 1, whatever the flag."""
+        if self.scalar:
+            return [torch.zeros_like(x) for x in u_l]
         d, g, P, R_ref = self.d, self.gamma, self.P, self.R_ref
         rans = self.rcfg.rans
         rho_l = u_l[0]
@@ -368,12 +363,18 @@ class BCFunctions:
                 if rans:
                     cand[d + 2] = torch.where(inflow, self.mu_tilde_inf,
                                               u_l[d + 2])
+            elif f == AD_WALL:
+                # the trivial Dirichlet state (bc.py:309-310)
+                cand = [torch.zeros_like(x) for x in u_l]
             else:
-                raise NotImplementedError(
-                    f"hifiles_tpu_torch BC flag {f} not ported yet "
-                    "(AD_WALL comes with advection-diffusion)")
+                raise NotImplementedError(f"BC flag {f}")
             mask = self._mask[f]
             u_r = self._where(True if mask is None else mask, cand, u_r)
+        if fluc is not None and self._inflow is not False:
+            # inflow momentum bump; the reference leaves energy unchanged
+            # (ref:src/bdy_inters.cpp:250-254, :1060-1117)
+            bumped = [u_r[1 + m] + u_r[0] * fluc[m] for m in range(d)]
+            u_r[1:1 + d] = self._where(self._inflow, bumped, u_r[1:1 + d])
         return u_r
 
     # ------------------------------------------------------------------
@@ -382,7 +383,7 @@ class BCFunctions:
         (ref:src/bdy_inters.cpp:230-307); dual-consistent slip walls take
         the left state's own normal flux."""
         fn = self.riemann(u_l, u_r0, norm, self.gamma, self.d)
-        if SLIP_WALL_DUAL in self.flags:
+        if SLIP_WALL_DUAL in self.flags and not self.scalar:
             fn_l = _normal_flux_p(u_l, norm, self.d, self.gamma)
             mask = self._mask[SLIP_WALL_DUAL]
             fn = self._where(True if mask is None else mask, fn_l, fn)
@@ -436,7 +437,10 @@ class BCFunctions:
         of the wall-model input state."""
         d, rcfg = self.d, self.rcfg
         grad_r = self.boundary_gradients(u_c, grad_l, norm)
-        f_r = visc_flux_p(u_c, grad_r, d, **self.visc_kw)
+        if self.scalar:
+            f_r = adv_diff_flux_p(grad_r, rcfg.diff_coeff)
+        else:
+            f_r = visc_flux_p(u_c, grad_r, d, **self.visc_kw)
         fn = [sum(f_r[m][i] * norm[m] for m in range(d))
               - rcfg.ldg_tau * (u_c[i] - u_l[i]) for i in range(len(u_l))]
         if SLIP_WALL in self.flags:

@@ -3,9 +3,10 @@ space.
 
 Port of hifiles_tpu/solver/multiblock.py::MixedSolver (:383-959) with its
 mixed SoA chunk (:724-792): the per-type blocks of
-elements.build_mixed_blocks, the residual of residual_mixed_soa.py, and
-the time loop, featured carry (BC ramp counter, bulk-momentum forcing over
-each type's -x cyclic slots, running averages) and diagnostics of
+elements.build_mixed_blocks, the residual of residual_mixed_soa.py, the
+turbulent inlet on the global slot space (_TIFacade), and the time loop,
+featured carry (BC ramp counter, bulk-momentum forcing over each type's
+-x cyclic slots, running averages) and diagnostics of
 solver.BlockLoop, which Solver shares.  Pure-prism meshes run here too
 (their tri and quad faces differ in size), as the JAX package's
 command-line entry point routes them.  The state is one tensor holding each type's (U_t, F, E_t)
@@ -18,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import HEX, PRISM, QUAD, TET, TRI
 from ..config.params import RunInput
 from ..mesh.core import MeshData
 from ..models.euler import max_wavespeed
@@ -25,17 +27,16 @@ from .bc import BCFunctions, use_wm_of, wall_models_on
 from .elements import MixedMeshTables, build_mixed_blocks
 from .ics import initial_condition
 from .residual_mixed_soa import bdy_point_faces, make_mixed_residual_soa
-from .solver import (BlockLoop, build_ops, needs_wall_distance,
-                     not_ported_run, wall_points)
+from .solver import BlockLoop, build_ops, needs_wall_distance, wall_points
 
 
 def _unsupported(p: RunInput, _mesh) -> list:
-    """MixedSolver features this port does not cover yet: those of every
-    solver, and ``patch``, which the JAX MixedSolver leaves unapplied
-    (multiblock.py:544-548: its initial state is never patched, and its
-    driver patches a restart only through a single-type solver's block,
-    driver.py:137-143), so the port has no behaviour to hold it to."""
-    missing = not_ported_run(p)
+    """What MixedSolver does not run: ``patch``, which the JAX MixedSolver
+    leaves unapplied (multiblock.py:544-548: its initial state is never
+    patched, and its driver patches a restart only through a single-type
+    solver's block, driver.py:137-143), so the port has no behaviour to
+    hold it to."""
+    missing = []
     if p.patch:
         missing.append("patch (the JAX MixedSolver leaves the initial and "
                        "restart states unpatched)")
@@ -78,6 +79,37 @@ def build_mixed_wm_tables(mt: MixedMeshTables, use_wm_face: np.ndarray):
     per_ct = {ct: tuple(np.asarray(x, dtype=np.int64) for x in v)
               for ct, v in per_ct.items()}
     return per_ct, wm_dist
+
+
+class _TIFacade:
+    """Duck-typed block for turb_inlet.inlet_host_setup on the mixed
+    GLOBAL slot space: per-slot quadrature weights and owning-cell size
+    replace the single-type ``slots % Pf`` arithmetic.  Copied from
+    hifiles_tpu/solver/multiblock.py:50-77."""
+
+    _REF_VOL = {TRI: 2.0, QUAD: 4.0, TET: 4.0 / 3.0, PRISM: 4.0, HEX: 8.0}
+
+    def __init__(self, mt: MixedMeshTables, run_input: RunInput):
+        self.ops = mt.blocks[mt.cts[0]].ops       # n_dims only
+        self.bdy_slot = mt.bdy_slot
+        self.bdy_bcid = mt.bdy_bcid
+        self.bdy_mask = mt.bdy_mask
+        self.pos_fpts = mt.pos_fpts
+        self.norm_fpts = mt.norm_fpts
+        self.tdA_fpts = mt.tdA_fpts
+        wq, ls = [], []
+        for ct in mt.cts:
+            b = mt.blocks[ct]
+            o = b.ops
+            wq.append(np.tile(o.fpt_weights, b.n_eles))
+            # per-element cell-size metric (ref:src/eles.cpp:6023-6070)
+            cell = (run_input.filter_ratio
+                    * (self._REF_VOL[ct]
+                       * b.detjac_upts.max(axis=1)) ** (1.0 / o.n_dims)
+                    / (run_input.order + 1.0))
+            ls.append(np.repeat(cell, o.n_fpts))
+        self.slot_wq = np.concatenate(wq)
+        self.slot_ls = np.concatenate(ls)
 
 
 def mixed_bc_functions(run_input: RunInput, mt: MixedMeshTables, rcfg,
@@ -142,9 +174,19 @@ class MixedSolver(BlockLoop):
             mt, self.rcfg, self.device, dtype, self._bc_fns,
             self._wm_tables)
 
-        def rhs(u, ramp):
+        # the boundary planes are (1, Nb), one column per boundary point
+        # (residual_mixed_soa.MixedSoaTables)
+        pts = mt.bdy_mask > 0
+        plane_index = -np.ones(mt.bdy_mask.shape, dtype=np.int64)
+        plane_index[pts] = np.arange(int(pts.sum()))
+        self._setup_inlet(_TIFacade(mt, run_input), plane_index,
+                          (1, int(pts.sum())),
+                          lambda u: self.residual_soa.flux_point_rows(
+                              self._views(u)))
+
+        def rhs(u, ramp, fluc=None):
             out = self._alloc()
-            self.residual_soa(self._views(u), None, ramp,
+            self.residual_soa(self._views(u), fluc, ramp,
                               out=self._views(out))
             return out
         blocks = [mt.blocks[ct] for ct in cts]
@@ -167,6 +209,7 @@ class MixedSolver(BlockLoop):
         p = self.p
         if p.dt_type == 0:
             return p.dt
+        self._check_cfl_dt()
         dts = []
         for b, u in zip(self._blocks, self._views(self.u_soa)):
             lam = max_wavespeed(u.unbind(1), p.gamma, self.n_dims).amax(dim=0)

@@ -19,12 +19,15 @@ from .elements import ElementBlock
 @dataclasses.dataclass(frozen=True)
 class ResidualConfig:
     """Static numeric parameters of the residual: the fields of the JAX
-    package's ``ResidualConfig`` that the port reads.  The fields of the
-    physics not ported yet (advection-diffusion, LF) come with that
-    physics.  ``precision`` (backend.select_device turns TF32 off instead)
-    and ``fused`` (the port has no unfused parity path) have no
-    counterpart."""
+    package's ``ResidualConfig`` that the port reads.  ``precision``
+    (backend.select_device turns TF32 off instead) and ``fused`` (the port
+    has no unfused parity path) have no counterpart."""
     equation: int = 0
+    # advection-diffusion (equation 1, ref:src/flux.cpp:243-247) and its
+    # Lax-Friedrichs flux (ref:src/inters.cpp:535-557)
+    wave_speed: tuple = (0.0, 0.0, 0.0)
+    lambda_lf: float = 1.0
+    diff_coeff: float = 0.0
     viscous: bool = False
     riemann_solve_type: int = 0
     gamma: float = 1.4

@@ -2,11 +2,12 @@
 
 Port of hifiles_tpu/solver/residual_soa.py: 2-D or 3-D Navier-Stokes or
 Euler with constant or Sutherland viscosity, Rusanov, RoeM or HLLC with
-LDG, boundary faces, and the feature physics of the JAX path: the LES SGS
-models (eddy viscosity and similarity; SVV filters the state in the
-solver), over-integration and SA-RANS.  Anything else raises
-NotImplementedError naming what is missing; the port never falls back to a
-slower path.
+LDG, boundary faces with the turbulent inlet's fluctuations, the feature
+physics of the JAX path (the LES SGS models: eddy viscosity and
+similarity; SVV filters the state in the solver; over-integration and
+SA-RANS), and scalar advection-diffusion (equation 1) with the
+Lax-Friedrichs flux.  Anything else raises NotImplementedError naming what
+is missing; the port never falls back to a slower path.
 
 Every operator application is one large GEMM over the solution-point axis
 (``torch.matmul``, TF32 off), as the JAX package leaves them to XLA.  The
@@ -33,6 +34,7 @@ import os
 import numpy as np
 import torch
 
+from ..models.viscous import adv_diff_viscous_flux
 from ..ops.les_filter import build_les_filter
 
 from .elements import ElementBlock
@@ -335,6 +337,21 @@ def roem_p(u_l, u_r, norm, gamma, d):
             for fl, fr, duk, bq in zip(fn_l, fn_r, du, bdq)]
 
 
+def lf_p(u_l, u_r, norm, wave_speed, lam):
+    """Scalar advection LF flux (ref:src/inters.cpp:535-557) on planes."""
+    u_av = 0.5 * (u_l[0] + u_r[0])
+    u_diff = u_l[0] - u_r[0]
+    ns = sum(wave_speed[m] * norm[m] for m in range(len(norm)))
+    return [ns * u_av + 0.5 * lam * torch.abs(ns) * u_diff]
+
+
+def adv_diff_flux_p(gr, diff_coeff):
+    """Equation 1's viscous flux planes [d][1] from the gradient planes
+    [d][1] (ref:src/flux.cpp:243-247)."""
+    return [[adv_diff_viscous_flux(g, diff_coeff) for g in row]
+            for row in gr]
+
+
 def ldg_sign_p(norm, tol=1e-10):
     """Plane version of riemann.ldg_beta_switch."""
     n0 = norm[0]
@@ -455,11 +472,6 @@ def config_missing(cfg: ResidualConfig, d: int, blocks, has_bdy: bool,
     the element blocks ``blocks`` with (``has_bdy``) boundary faces and
     the boundary functions ``bc_fns``."""
     missing = []
-    if cfg.equation != 0:
-        missing.append("advection-diffusion (equation 1)")
-    if cfg.riemann_solve_type not in (RUSANOV, ROEM, HLLC):
-        missing.append(f"riemann_solve_type {cfg.riemann_solve_type} "
-                       "(Lax-Friedrichs)")
     if cfg.rans and cfg.riemann_solve_type == HLLC:
         # the deck parsers refuse the pair (config/params.py:467-471, as
         # the JAX package's do), and no JAX path runs it: its HLLC builds
@@ -472,15 +484,12 @@ def config_missing(cfg: ResidualConfig, d: int, blocks, has_bdy: bool,
     if cfg.over_int and any(b.jginv_over is None for b in blocks):
         missing.append("over-integration without its cubature geometry "
                        "(build_element_block over_int_order)")
-    if cfg.n_fields != (d + 3 if cfg.rans else d + 2):
+    n_fields = 1 if cfg.equation == 1 else d + 3 if cfg.rans else d + 2
+    if cfg.n_fields != n_fields:
         missing.append(f"n_fields {cfg.n_fields}")
-    if has_bdy:
-        if bc_fns is None:
-            missing.append("boundary faces without boundary functions "
-                           "(bc.make_bc_functions)")
-        else:
-            # turbulent inlets, AD_WALL
-            missing += [m for m in bc_fns.missing if m not in missing]
+    if has_bdy and bc_fns is None:
+        missing.append("boundary faces without boundary functions "
+                       "(bc.make_bc_functions)")
     return missing
 
 
@@ -495,6 +504,21 @@ def unsupported(block: ElementBlock, cfg: ResidualConfig,
     return missing
 
 
+def riemann_of(cfg: ResidualConfig, d: int):
+    """The interface flux f(u_l, u_r, norm, gamma, d) on planes: by
+    riemann_solve_type for equation 0, Lax-Friedrichs for equation 1
+    (residual_soa.py:943-954 of the JAX package, which raises ValueError
+    for any other type with equation 0)."""
+    if cfg.equation == 1:
+        ws = [float(cfg.wave_speed[m]) for m in range(d)]
+        return lambda u_l, u_r, norm, gamma, d: lf_p(u_l, u_r, norm, ws,
+                                                    cfg.lambda_lf)
+    solvers = {RUSANOV: rusanov_p, ROEM: roem_p, HLLC: hllc_p}
+    if cfg.riemann_solve_type not in solvers:
+        raise ValueError(f"riemann_solve_type {cfg.riemann_solve_type}")
+    return solvers[cfg.riemann_solve_type]
+
+
 class Physics:
     """What a residual computes, read from its ResidualConfig at dimension
     d: the volume kernel's parameters, the keywords of the plane physics,
@@ -502,16 +526,16 @@ class Physics:
 
     def __init__(self, cfg: ResidualConfig, d: int):
         self.cfg, self.d, self.nF = cfg, d, cfg.n_fields
-        self.riemann = {RUSANOV: rusanov_p, ROEM: roem_p,
-                        HLLC: hllc_p}[cfg.riemann_solve_type]
+        self.scalar = cfg.equation == 1
+        self.riemann = riemann_of(cfg, d)
         # LES model dispatch (ref:src/eles.cpp:2437-2461): eddy-viscosity
         # part for Smagorinsky/WALE/WALE-similarity, Leonard part for
         # (WALE-)similarity; SVV (model 3) filters the state per step in
-        # the solver
-        self.use_eddy = cfg.les and cfg.sgs_model in (0, 1, 2) \
-            and cfg.viscous
-        self.use_similarity = cfg.les and cfg.sgs_model in (2, 4) \
-            and cfg.viscous
+        # the solver.  Equation 1's flux carries neither (residual_soa.py:
+        # 1095-1096, :1159-1160)
+        les = cfg.les and cfg.viscous and not self.scalar
+        self.use_eddy = les and cfg.sgs_model in (0, 1, 2)
+        self.use_similarity = les and cfg.sgs_model in (2, 4)
         self.prm = VolumeParams(
             gamma=cfg.gamma, prandtl=cfg.prandtl, mu=cfg.mu_inf,
             viscous=cfg.viscous, fix_vis=cfg.fix_vis, rt_inf=cfg.rt_inf,
@@ -607,6 +631,11 @@ class BlockStages:
         g_f = [(sum(S.jg_f[m, l] * tgf[m] for m in range(d))
                 * S.inv_det_f) for l in range(d)]         # d x (F, E, Pf)
         g_fp = [g.unbind(0) for g in g_f]
+        if ph.scalar:
+            fv_e = adv_diff_flux_p(g_fp, ph.cfg.diff_coeff)
+            qn = torch.stack([sum(fv_e[m][0] * S.norm_f[m]
+                                  for m in range(d))])    # (1, E, Pf)
+            return g_f, qn, None
         u_f = uf.unbind(0)
         fv_e = visc_flux_p(u_f, g_fp, d, **ph.visc_kw)
         if ph.use_eddy:
@@ -630,6 +659,8 @@ class BlockStages:
         (ref:src/eles.cpp:1415-1545)."""
         ph, S, U = self.ph, self.S, self.U
         d, nF, E = ph.d, ph.nF, self.E
+        if ph.scalar:
+            return self.volume_scalar(u, gr)
         if ph.cfg.over_int:
             C2 = S.opp_over.shape[0]
             u_o = (S.opp_over @ u.reshape(U, nF * E)).view(C2, nF, E)
@@ -644,6 +675,36 @@ class BlockStages:
             return tdisf
         return volume_tdisf(u, gr, S.jg_u, ph.prm, self.delta_u,
                             self.wdist_u, extra)
+
+    def volume_scalar(self, u, gr):
+        """Equation 1's volume transformed flux (d, U, 1, E), plain torch:
+        tdisf_l = sum_m adj(J)_lm (a_m u - D du/dx_m) (residual_soa.py:
+        1095-1096, 1128-1139 of the JAX package); with over-integration
+        the advective part at the cubature points, L2-projected back, and
+        the diffusive part at the solution points (:1114-1126)."""
+        ph, S, U, d = self.ph, self.S, self.U, self.ph.d
+        cfg = ph.cfg
+
+        def transformed(f, jg):
+            return torch.stack([sum(jg[l, m][:, None] * f[m]
+                                    for m in range(d)) for l in range(d)])
+        adv = lambda x: [x * cfg.wave_speed[m] for m in range(d)]
+        fv = None
+        if cfg.viscous:
+            fv = [row[0] for row in adv_diff_flux_p(
+                [[g] for g in gr], cfg.diff_coeff)]
+        if not cfg.over_int:
+            f = adv(u)
+            if fv is not None:
+                f = [a + b for a, b in zip(f, fv)]
+            return transformed(f, S.jg_u)
+        C2, E = S.opp_over.shape[0], self.E
+        u_o = (S.opp_over @ u.view(U, E)).view(C2, 1, E)
+        t_o = transformed(adv(u_o), S.jg_o)                 # (d, C2, 1, E)
+        tdisf = (S.over_filter @ t_o.view(d, C2, E)).view(d, U, 1, E)
+        if fv is not None:
+            tdisf = tdisf + transformed(fv, S.jg_u)
+        return tdisf
 
     def rhs(self, u, gr, ntc, tdisf, out=None):
         """-div / det (+ the SA source) (U, F, E), into ``out`` if given:
@@ -667,6 +728,10 @@ def make_face_residual(stages, FA: FaceArrays, ph: Physics, bc_fns=None,
     """residual(us, fluc=None, ramp=None, out=None): the per-block states
     ``us`` (a sequence of (U_t, F, E_t) tensors, one per BlockStages of
     ``stages``) -> their right-hand sides, written into ``out`` if given.
+    ``fluc`` (d, *boundary plane), the turbulent inlet's velocity
+    fluctuations (turb_inlet.TurbInlet.update), enters the inflow ghost
+    states.  ``residual.flux_point_rows(us)`` gives the flux-point rows
+    (F, S) of the states, which the inlet reads.
 
     The face stage runs once on the flux points of all the blocks side by
     side: (C, S) rows with S = sum_t E_t*Pf_t, read and written with the
@@ -719,11 +784,14 @@ def make_face_residual(stages, FA: FaceArrays, ph: Physics, bc_fns=None,
                 ws.index_copy_(1, cols, u[upt, :, ele].T)
         return ws.view(nF, *(1,) * (len(FA.shape_b) - 1), -1).unbind(0)
 
-    def face_states(us, ramp):
+    def face_states(us, ramp, fluc=None):
         """Steps 1-2: the per-block flux-point rows (F, E_t, Pf_t), the
         interior faces' two sides (F, *face plane), and the boundary faces'
         own states and inviscid ghost states (F planes each; None without
-        boundary faces)."""
+        boundary faces).  The inlet's ``fluc`` enters the ghost states
+        once, here: the LDG common solution and the boundary viscous flux
+        reuse them away from walls (bc.BCFunctions.ldg_solution), as the
+        JAX closures rebuild them with the same fluc (bc.py:327-357)."""
         # 1. extrapolate to flux points: one GEMM per block
         ufs = [k.to_fpts(u) for k, u in zip(stages, us)]  # (F, E_t, Pf_t)
         uf2 = flat(ufs)
@@ -735,7 +803,7 @@ def make_face_residual(stages, FA: FaceArrays, ph: Physics, bc_fns=None,
         u_b = g0_b = None
         if FA.has_bdy:
             u_b = read(uf2, FA.slot_b, FA.shape_b).unbind(0)
-            g0_b = bc_fns.ghost_state(u_b, norm_b, 0, ramp)
+            g0_b = bc_fns.ghost_state(u_b, norm_b, 0, ramp, fluc=fluc)
         return ufs, u_l, u_r, u_b, g0_b
 
     def corrected_gradient(us, u_l, u_r, u_b, g0_b, ramp):
@@ -765,11 +833,7 @@ def make_face_residual(stages, FA: FaceArrays, ph: Physics, bc_fns=None,
                                                    ramp)[2]]
 
     def residual(us, fluc=None, ramp=None, out=None):
-        if fluc is not None:
-            raise NotImplementedError(
-                "hifiles_tpu_torch residual: not ported yet: turbulent-inlet "
-                "fluctuations (fluc)")
-        ufs, u_l, u_r, u_b, g0_b = face_states(us, ramp)
+        ufs, u_l, u_r, u_b, g0_b = face_states(us, ramp, fluc)
 
         # 3. viscous gradient path
         grs = extras = [None] * len(stages)
@@ -826,6 +890,8 @@ def make_face_residual(stages, FA: FaceArrays, ph: Physics, bc_fns=None,
                          zip(stages, us, grs, tdisfs, outs)))
 
     residual.gradient = gradient
+    residual.flux_point_rows = lambda us: flat(
+        [k.to_fpts(u) for k, u in zip(stages, us)])
     return residual
 
 
@@ -856,4 +922,5 @@ def make_residual_soa(block: ElementBlock, cfg: ResidualConfig, device,
 
     residual_soa.gradient = lambda u, ramp=None: residual.gradient((u,),
                                                                    ramp)[0]
+    residual_soa.flux_point_rows = lambda u: residual.flux_point_rows((u,))
     return residual_soa

@@ -4,15 +4,17 @@ Port of hifiles_tpu/solver/solver.py (:32-276) for one quad, tri, hex or
 tet block: the "SoA (fast)" chunk and the "SoA featured (fast)" chunk
 (solver.py:380-482), i.e. the
 features of the SoA residual port with boundary conditions and wall models,
-the SVV pre-step filter, shock capture, the BC ramp counter, bulk-momentum
-body forcing and running time averages; fixed, global CFL or per-element
+the SVV pre-step filter, shock capture, the BC ramp counter, the turbulent
+inlet (white noise or SEM, updated once per step), bulk-momentum body
+forcing and running time averages; fixed, global CFL or per-element
 local time steps (compute_dt, solver.py:570-641); and the diagnostics the
 writers read (the corrected gradient, the shock sensor, the analytic error
 with its gradient row).  Setup runs once on the
 host in numpy; the time loop is a Python loop of RK steps on the
 elements-minor (U, F, E) state.  The featured carry (ramp counter, mass-flux
-memory, simulated time, averages) stays in device tensors of the state's
-dtype, as the JAX scan carry does, so a step never waits for the device.
+memory, simulated time, averages, the inlet's eddies) stays in device
+tensors of the state's dtype, as the JAX scan carry does, so a step never
+waits for the device.
 
 ``BlockLoop`` holds what Solver shares with multiblock.MixedSolver, for
 which a single-type mesh is a mixed mesh with one block: the state is one
@@ -38,27 +40,21 @@ from ..convert import euf_to_ufe, ufe_to_euf
 from ..models.euler import max_wavespeed
 from ..models.viscous import sutherland_mu
 from ..ops.stabilization import make_shock_capture_soa
-from .bc import make_bc_functions, not_ported
+from .bc import BCFunctions, make_bc_functions
 from .elements import build_element_block
 from .ics import analytic_solution, apply_patch, initial_condition
 from .residual import ResidualConfig
 from .residual_soa import make_residual_soa
 from .step import N_STAGES, make_step_fn
+from .turb_inlet import build_turb_inlet
 
 
 AVERAGE_FIELDS = ("rho_average", "u_average", "v_average", "w_average",
                   "e_average")
 
 
-def not_ported_run(p: RunInput) -> list:
-    """Run features this port does not cover yet on any mesh (the
-    residual's own are reported by residual_soa.config_missing)."""
-    # turbulent inlets, equation 1 (the BC flags are checked per block)
-    return not_ported(p, ())
-
-
 def _unsupported(p: RunInput, mesh: MeshData) -> list:
-    """Solver features this port does not cover yet."""
+    """What Solver does not run: meshes for MixedSolver."""
     missing = []
     types = np.unique(mesh.ctype)
     if types.size > 1:
@@ -68,7 +64,7 @@ def _unsupported(p: RunInput, mesh: MeshData) -> list:
     elif int(types[0]) == PRISM:
         missing.append("prism blocks (non-uniform faces; use "
                        "hifiles_tpu_torch.MixedSolver)")
-    return missing + not_ported_run(p)
+    return missing
 
 
 def build_ops(p: RunInput, ctype: int):
@@ -101,6 +97,8 @@ def residual_config(p: RunInput, n_fields: int) -> ResidualConfig:
     return ResidualConfig(
         equation=p.equation, viscous=bool(p.viscous),
         riemann_solve_type=p.riemann_solve_type,
+        wave_speed=tuple(p.wave_speed), lambda_lf=p.lambda_lf,
+        diff_coeff=p.diff_coeff,
         gamma=p.gamma, prandtl=p.prandtl,
         mu_inf=nan0(p.mu_inf, 0.0), rt_inf=nan0(p.rt_inf, 1.0),
         c_sth=nan0(p.c_sth, 0.0),
@@ -140,9 +138,10 @@ class BlockLoop:
     state is one or several element blocks (Solver, MixedSolver).
 
     A subclass sets up the deck and mesh with ``_setup``, builds its
-    blocks and residual, and calls ``_setup_loop`` with its blocks in state
-    order, each block's global cell ids, and ``rhs(u, ramp)``, which maps a
-    state tensor to a new right-hand-side tensor of the same layout."""
+    blocks and residual, the turbulent inlet with ``_setup_inlet``, and
+    calls ``_setup_loop`` with its blocks in state order, each block's
+    global cell ids, and ``rhs(u, ramp, fluc=None)``, which maps a state
+    tensor to a new right-hand-side tensor of the same layout."""
 
     def _setup(self, run_input: RunInput, mesh: MeshData, device, dtype,
                unsupported):
@@ -182,6 +181,32 @@ class BlockLoop:
         self.conn = build_faces(mesh, bc_flags, self.delta_cyclic)
         self.rcfg = residual_config(run_input, self.n_fields)
 
+    def _setup_inlet(self, block, plane_index, plane_shape, fpt_rows):
+        """The turbulent inlet, when LES runs and a boundary group has
+        inlet_type > 0 (solver.py:168-178, multiblock.py:464-471 of the
+        JAX package): ``block`` the element block or multiblock._TIFacade,
+        ``plane_index`` and ``plane_shape`` the boundary planes of the
+        face stage (turb_inlet.build_turb_inlet), ``fpt_rows(u)`` the
+        flux-point rows (F, S) of a state tensor.  The inlet draws from a
+        device generator seeded with 0 until ``set_inlet_draws``."""
+        self.turb_inlet = self._ti_state = self._fluc = None
+        if not (self.p.LES and self._bc_fns is not None):
+            return
+        self.turb_inlet = build_turb_inlet(
+            self.p, block, lambda bcid: BCFunctions(
+                self.p, bcid, self.n_dims, self.rcfg, self.device,
+                self.dtype), plane_index, plane_shape, self.device,
+            self.dtype)
+        if self.turb_inlet is not None:
+            self._ti_state = self.turb_inlet.init_state
+            self._fpt_rows = fpt_rows
+
+    def set_inlet_draws(self, draws):
+        """Take the turbulent inlet's random draws from ``draws`` (a
+        turb_inlet.DeviceDraws or ReplayDraws) from the next step on."""
+        pos, sgn, _ = self._ti_state
+        self._ti_state = (pos, sgn, draws)
+
     def _setup_loop(self, blocks, sels, rhs):
         p, dt_, dev = self.p, self.dtype, self.device
         self._blocks, self._sels, self._rhs = blocks, sels, rhs
@@ -220,7 +245,7 @@ class BlockLoop:
         self._setup_featured()
 
         def stage_rhs(u):
-            r = rhs(u, self._k if self._has_ramp else None)
+            r = rhs(u, self._k if self._has_ramp else None, self._fluc)
             if self._forcing:
                 # the body force, an (F, 1) column (ref:src/eles.cpp:
                 # 1095-1247 adds the source to every stage's rhs)
@@ -395,7 +420,11 @@ class BlockLoop:
         Solver) an (E,) array of per-element steps, dt_type 2's local dt:
         the RK update takes it per element, while body forcing, the
         averages and the clock take its minimum, read once per call
-        (solver.py:615-641 of the JAX package)."""
+        (solver.py:615-641 of the JAX package).  The turbulent inlet
+        advances once per step, at stage 0, after the SVV pre-step, from
+        the state's flux-point rows and that minimum (solver.py:413-425;
+        ref:src/solver.cpp:111-118); its fluctuations hold for the step's
+        stages."""
         dt = self.compute_dt() if dt is None else dt
         if getattr(dt, "ndim", 0) == 1:
             dt_rk, dt = self._local_dt(dt)
@@ -404,6 +433,9 @@ class BlockLoop:
         for _ in range(n_steps):
             if self._pre_step is not None:
                 self.u_soa = self._pre_step(self.u_soa)
+            if self.turb_inlet is not None:
+                self._ti_state, self._fluc = self.turb_inlet.update(
+                    self._ti_state, self._fpt_rows(self.u_soa), dt)
             if self._forcing:
                 self._bf = self._body_force(self.u_soa, dt)
             self.u_soa, self.reg_soa = self._step(self.u_soa, self.reg_soa,
@@ -415,6 +447,33 @@ class BlockLoop:
                     self._average(dt)
         self.time += dt * n_steps
         return self.u_soa
+
+    def snapshot(self):
+        """A copy of what a run advances: the state, RK register and clock,
+        and the featured carry (ramp counter, mass-flux memory, averaging
+        time, averages, the inlet's eddies and draw state), as bench.py's
+        _snapshot takes the JAX solver's (bench.py:175-197)."""
+        c = lambda t: None if t is None else t.clone()
+        ti = None
+        if self._ti_state is not None:
+            pos, sgn, draws = self._ti_state
+            ti = (pos.clone(), sgn.clone(), draws, draws.get_state())
+        return dict(u=c(self.u_soa), reg=c(self.reg_soa), time=self.time,
+                    k=c(self._k), mdot=c(self._mdot_old), t_sim=c(self._t_sim),
+                    avg=c(self.u_avg_soa), ti=ti)
+
+    def restore(self, snap):
+        """Return to a ``snapshot()`` (which stays usable)."""
+        c = lambda t: None if t is None else t.clone()
+        self.u_soa, self.reg_soa, self.time = c(snap["u"]), c(snap["reg"]), \
+            snap["time"]
+        self._k, self._mdot_old, self._t_sim = (c(snap["k"]), c(snap["mdot"]),
+                                                c(snap["t_sim"]))
+        self.u_avg_soa = c(snap["avg"])
+        if snap["ti"] is not None:
+            pos, sgn, draws, state = snap["ti"]
+            draws.set_state(state)
+            self._ti_state = (pos.clone(), sgn.clone(), draws)
 
     def _body_force(self, u, dt):
         """Channel/hill bulk-momentum forcing (solver.py:427-445;
@@ -526,6 +585,17 @@ class BlockLoop:
         """Residual of the current state, (E, U, F) numpy per block."""
         return self._state_out(self._to_numpy(self._rhs(self.u_soa, None)))
 
+    def _check_cfl_dt(self):
+        """The CFL time step reads |v| + c, which equation 1's one scalar
+        field does not hold: the JAX package's compute_dt returns NaN for
+        dt_type 1 and 2 there (models/euler.py:53-57 reads a pressure from
+        the scalar), and the port refuses."""
+        if self.p.equation == 1:
+            raise ValueError(
+                f"compute_dt: dt_type {self.p.dt_type} needs |v| + c, which "
+                "advection-diffusion (equation 1) does not have; the JAX "
+                "package's compute_dt returns NaN here; use dt_type 0")
+
     def residual_norm(self, norm_type: int = 2, r=None) -> np.ndarray:
         """Residual norm over every block's solution points with the
         reference's normalization (ref:src/output.cpp:2166-2247): L1 =
@@ -572,8 +642,14 @@ class Solver(BlockLoop):
         self.residual_soa = make_residual_soa(self.block, self.rcfg,
                                               self.device, dtype,
                                               self._bc_fns)
+        # the boundary planes are (nfp, Fb): face f's point j at j*Fb + f
+        Fb, nfp = self.block.bdy_slot.shape
+        self._setup_inlet(self.block, np.arange(nfp)[None, :] * Fb
+                          + np.arange(Fb)[:, None], (nfp, Fb),
+                          self.residual_soa.flux_point_rows)
         self._setup_loop([self.block], [np.arange(mesh.n_cells)],
-                         lambda u, ramp: self.residual_soa(u, None, ramp))
+                         lambda u, ramp, fluc=None: self.residual_soa(
+                             u, fluc, ramp))
         self.sensor_fn = self._sensor_of(0) if run_input.shock_cap else None
         self._h_ref = torch.as_tensor(self.block.h_ref, dtype=dtype,
                                       device=self.device)
@@ -596,10 +672,12 @@ class Solver(BlockLoop):
         largest |v| + c, and with viscosity the viscous limit
         max(4/3, gamma/Pr) mu/rho, computed on the device in the state's
         dtype: dt_type 1 their global minimum as a 0-d tensor, dt_type 2
-        the per-element (E,) tensor."""
+        the per-element (E,) tensor.  Equation 1 takes dt_type 0 only
+        (``_check_cfl_dt``)."""
         p = self.p
         if p.dt_type == 0:
             return p.dt
+        self._check_cfl_dt()
         d, h_ref, CFL = self.n_dims, self._h_ref, p.CFL
         u = self.u_soa.unbind(1)
         lam = max_wavespeed(u, p.gamma, d).amax(dim=0)

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""The f32 CPU golden residual rows of the PyTorch port's `quad` and `tet`
-slices (chip_smoke.py), recorded with the JAX package.
+"""The f32 CPU golden residual rows of the PyTorch port's `quad`, `tet`,
+`sem` and `advdiff` slices (chip_smoke.py), recorded with the JAX package.
 
-  JAX_PLATFORMS=cpu python scripts/gen_torch_goldens.py [quad] [tet]
+  JAX_PLATFORMS=cpu python scripts/gen_torch_goldens.py [quad] [tet] [sem]
+      [advdiff]
 
 Protocol of bench.py (warmup + timed steps): 10 + 10 RK45 steps in f32, the
 L1 residual row after step 20.
@@ -10,9 +11,25 @@ L1 residual row after step 20.
         HLLC, dt 1e-4) on periodic_quad_mesh(96, 96, -10, 10, -10, 10):
         9,216 quads, 230,400 DOF;
   tet:  bench.run_tgv's TGV deck (p=4, HLLC) on periodic_tet_mesh(12, 12,
-        12): 10,368 tets, 362,880 DOF.
+        12): 10,368 tets, 362,880 DOF;
+  sem:  tests/test_turb_inlet.py's WALE LES deck with a 1000-eddy SEM inlet
+        (mode 0) at p=4 on the 16^3 duct [-pi, pi]^3 (x- faces Inflow,
+        x+ faces Outflow, y and z cyclic): 4,096 hexes, 512,000 points x 5
+        fields; its fixed dt is compute_dt at the initial state with CFL
+        0.5 (dt_type 1).  The JAX inlet's per-step draws (split the key
+        into three, uniform (1000, 3) from the second and the third), taken
+        again outside the solver from PRNGKey(0), go with dt into
+        tests/data/torch_sem_draws.npz, which chip_smoke.py replays;
+  advdiff: tests/test_adv_diff.py's deck (equation 1, LF, LDG beta 0.5,
+        tau 1) with wave speed (1, 0.5, 0.25) at p=4 on the 16^3 box
+        [-1, 1]^3: 512,000 points x 1 field, dt 1e-4 (the deck's 1e-3
+        diverges at this resolution); also compute_error(2)'s solution
+        and gradient rows (as `advdiff_error`) of the same run in f64: in
+        f32 the state's rounding (6e-8 of the unit wave) outweighs the
+        p=4 discretization error (the f32 rows read 2x and 3.4x the f64
+        ones), so the error rows are held in f64.
 Prints one JSON line per slice; paste the rows into chip_smoke.py's
-TORCH_GOLDENS with the date and this command.
+TORCH_GOLDENS (and SEM_DT) with the date and this command.
 """
 
 import json
@@ -56,6 +73,83 @@ def tgv_deck():
     return p
 
 
+def sem_case(n=16, order=4, n_eddy=1000):
+    """tests/test_turb_inlet.py's deck on the n^3 duct (chip_smoke.duct_mesh
+    and les_duct_input, built with the JAX package)."""
+    import numpy as np
+    from hifiles_tpu.mesh.generate import periodic_hex_mesh
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from test_turb_inlet import les_channel_input
+    p = les_channel_input(inlet_type=2, n_eddy=n_eddy)
+    inflow, outflow, cyc = p.bc_list
+    p.bc_list = [cyc, inflow, outflow]
+    p.order = order
+    p.dy_cyclic = p.dz_cyclic = 2 * np.pi
+    mesh = periodic_hex_mesh(n, n, n)
+    for c in range(mesh.n_cells):
+        if c % n == 0:
+            mesh.bc_id[c, 4] = 1
+        if c % n == n - 1:
+            mesh.bc_id[c, 2] = 2
+    mesh.bc_names = ["Cyclic", "Inflow", "Outflow"]
+    return p, mesh
+
+
+def sem_row(n_steps=20):
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from hifiles_tpu.solver.solver import Solver
+
+    p, mesh = sem_case()
+    p.dt_type, p.CFL = 1, 0.5
+    s = Solver(p, mesh, dtype=jnp.float32)
+    dt = float(s.compute_dt())
+    p.dt_type, p.dt = 0, dt
+    key = s.turb_inlet.init_state[2]
+    draws = []
+    for _ in range(n_steps):
+        key, k1, k2 = jax.random.split(key, 3)
+        draws.append([np.asarray(jax.random.uniform(k, (1000, 3),
+                                                    dtype=jnp.float32))
+                      for k in (k1, k2)])
+    out = os.path.join(ROOT, "tests", "data", "torch_sem_draws.npz")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    np.savez_compressed(out, draws=np.asarray(draws, dtype=np.float32),
+                        dt=np.float64(dt))
+    s.run(10, dt=dt)
+    s.run(10, dt=dt)
+    return {"sem": [float(x) for x in np.asarray(s.residual_norm(1))],
+            "sem_dt": dt}
+
+
+def advdiff_rows():
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from hifiles_tpu.mesh.generate import periodic_hex_mesh
+    from hifiles_tpu.solver.solver import Solver
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from test_adv_diff import adv_diff_input
+    p = adv_diff_input(order=4)
+    p.wave_speed, p.dz_cyclic, p.dt = (1.0, 0.5, 0.25), 2.0, 1e-4
+    mesh = periodic_hex_mesh(16, 16, 16, -1, 1, -1, 1, -1, 1)
+    s = Solver(p, mesh, dtype=jnp.float32)
+    s.run(10, dt=p.dt)
+    s.run(10, dt=p.dt)
+    row = [float(x) for x in np.asarray(s.residual_norm(1))]
+    jax.config.update("jax_enable_x64", True)
+    try:
+        s = Solver(p, mesh, dtype=jnp.float64)
+        s.run(10, dt=p.dt)
+        s.run(10, dt=p.dt)
+        err = np.asarray(s.compute_error(2))
+    finally:
+        jax.config.update("jax_enable_x64", False)
+    return {"advdiff": row,
+            "advdiff_error": [float(err[0, 0]), float(err[1, 0])]}
+
+
 def golden_row(name):
     import jax.numpy as jnp
     import numpy as np
@@ -70,7 +164,8 @@ def golden_row(name):
     elif name == "tet":
         p, mesh = tgv_deck(), periodic_tet_mesh(12, 12, 12)
     else:
-        raise SystemExit(f"unknown slice {name!r}: quad or tet")
+        raise SystemExit(f"unknown slice {name!r}: quad, tet, sem or "
+                         "advdiff")
     s = Solver(p, mesh, dtype=jnp.float32)
     s.run(10, dt=p.dt)
     s.run(10, dt=p.dt)
@@ -78,8 +173,9 @@ def golden_row(name):
 
 
 if __name__ == "__main__":
-    for name in sys.argv[1:] or ["quad", "tet"]:
+    for name in sys.argv[1:] or ["quad", "tet", "sem", "advdiff"]:
         t0 = time.perf_counter()
-        row = golden_row(name)
-        print(json.dumps({name: row}), flush=True)
+        rows = {"sem": sem_row, "advdiff": advdiff_rows}.get(name)
+        print(json.dumps(rows() if rows else {name: golden_row(name)}),
+              flush=True)
         print(f"{name}: {time.perf_counter() - t0:.1f} s", file=sys.stderr)

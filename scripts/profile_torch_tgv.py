@@ -9,8 +9,11 @@ smag, overint, rans or shock (TGV p=4 on 16^3 periodic hexes; default
 plain), channel (bench.run_channel: forced plane-channel LES, 16^3 hexes,
 p=4), quad (bench.mixed_input's 2-D viscous vortex, p=4, on 96^2 periodic
 quads), tet (the TGV deck, p=4, on 12^3 periodic Kuhn tets), mixed
-(bench.run_mixed: the vortex on the 96^2 tri+quad box) or mixed3d
-(bench.run_mixed3d: the wall-modelled prism/tet LES channel, p=2).
+(bench.run_mixed: the vortex on the 96^2 tri+quad box), mixed3d
+(bench.run_mixed3d: the wall-modelled prism/tet LES channel, p=2), sem
+(the WALE LES duct with a 1000-eddy SEM inlet, 16^3 hexes, p=4, its draws
+from the card's generator) or advdiff (the 3-D sine wave, equation 1, 16^3
+hexes, p=4).
 
 With --count-ops it runs one step on the CPU (no GPU needed), on a small
 mesh of the same kind (the count does not depend on the element count),
@@ -19,8 +22,9 @@ card: every aten op it dispatches that writes memory (views and empty
 allocations launch nothing), the plain version of the volume kernel
 counted as its one launch.  Otherwise it needs CUDA: it warms up
 2 steps, then traces N steps (default 2) with torch.profiler.  Prints the device time per kernel class (GEMM, the hand
-volume kernel, gathers/stores, other elementwise, and the boundary stage:
-every kernel launched inside the boundary functions), the device busy share
+volume kernel, gathers/stores, other elementwise, the boundary stage:
+every kernel launched inside the boundary functions, and the turbulent
+inlet: every kernel of its once-per-step update), the device busy share
 of the traced wall time, the launches per RK stage, and the host syncs
 (cudaStreamSynchronize, aten::item) inside the traced steps; writes the top
 kernels and a chrome trace under --out (default profile_out/), and the host
@@ -37,6 +41,10 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BOUNDARY = "boundary stage"
+INLET = "turbulent inlet"
+# the profiler ranges whose kernels get a class of their own
+RANGES = {BOUNDARY: "boundary stage (plain torch)",
+          INLET: "turbulent inlet (plain torch)"}
 SYNC_EVENTS = ("cudaStreamSynchronize", "aten::item",
                "aten::_local_scalar_dense")
 
@@ -52,53 +60,54 @@ def kernel_class(name):
     return "other elementwise"
 
 
-def annotate_boundary(bc_fns):
-    """Run every method of the boundary functions inside a profiler range
-    named BOUNDARY (the residual calls them once or twice per stage)."""
+def annotate(obj, names, label):
+    """Run the methods ``names`` of ``obj`` inside a profiler range named
+    ``label``: the boundary functions (the residual calls them once or
+    twice per stage) in BOUNDARY, the inlet's update in INLET."""
     import torch
 
     def wrap(fn):
         @functools.wraps(fn)
         def inner(*args, **kwargs):
-            with torch.profiler.record_function(BOUNDARY):
+            with torch.profiler.record_function(label):
                 return fn(*args, **kwargs)
         return inner
-    for name in ("ghost_state", "ldg_solution", "inv_common_flux",
-                 "visc_common_flux"):
-        setattr(bc_fns, name, wrap(getattr(bc_fns, name)))
+    for name in names:
+        setattr(obj, name, wrap(getattr(obj, name)))
 
 
 def breakdown(events):
     """(device us by class, kernel launches, host syncs, rows) from the
     profiler's events.  Every device event (kernel, memset, copy) counts
-    once, classed by its name; a kernel that an op launched inside
-    BOUNDARY is classed as the boundary stage instead.  Kernels launched
-    outside any op (the hand kernel, through ctypes) are linked to no op
-    and keep their name's class."""
+    once, classed by its name; a kernel that an op launched inside one of
+    RANGES is classed as that range instead.  Kernels launched outside any
+    op (the hand kernel, through ctypes) are linked to no op and keep
+    their name's class."""
     import torch
     cuda = torch.autograd.DeviceType.CUDA
     rows = collections.defaultdict(lambda: [0.0, 0])
-    bdy = collections.defaultdict(lambda: [0.0, 0])
+    ranged = {r: collections.defaultdict(float) for r in RANGES}
     syncs = 0
     for ev in events:
         if ev.name in SYNC_EVENTS:
             syncs += 1
-        if ev.device_type == cuda and ev.name != BOUNDARY:
+        if ev.device_type == cuda and ev.name not in RANGES:
             rows[ev.name][0] += ev.time_range.elapsed_us()
             rows[ev.name][1] += 1
         kernels = getattr(ev, "kernels", None) or []
         parent = ev if kernels else None
-        while parent is not None and parent.name != BOUNDARY:
+        while parent is not None and parent.name not in RANGES:
             parent = parent.cpu_parent
         if parent is not None:
             for k in kernels:
-                bdy[k.name][0] += k.duration
-                bdy[k.name][1] += 1
+                ranged[parent.name][k.name] += k.duration
     by_class = collections.defaultdict(float)
     for name, (us, n) in rows.items():
-        if name in bdy:
-            by_class["boundary stage (plain torch)"] += bdy[name][0]
-        by_class[kernel_class(name)] += us - bdy.get(name, (0.0,))[0]
+        for r, label in RANGES.items():
+            if name in ranged[r]:
+                by_class[label] += ranged[r][name]
+                us -= ranged[r][name]
+        by_class[kernel_class(name)] += us
     launches = sum(n for _, n in rows.values())
     return by_class, launches, syncs, rows
 
@@ -112,6 +121,8 @@ SMALL_MESHES = {
     "mixed": lambda m: m.periodic_mixed_mesh_2d(8, 8, -10, 10, -10, 10),
     "mixed3d": lambda m: m.channel_prism_tet_mesh(4, 4, 2, 2, x1=2.0, y1=1.0,
                                                   z1=1.0),
+    "sem": lambda m: __import__("chip_smoke").duct_mesh(2),
+    "advdiff": lambda m: m.periodic_hex_mesh(2, 2, 2, -1, 1, -1, 1, -1, 1),
 }
 
 
@@ -164,12 +175,12 @@ def main():
     if not args.count_ops and not torch.cuda.is_available():
         raise SystemExit("profile_torch_tgv: CUDA is not available")
     sys.path.insert(0, ROOT)
-    from chip_smoke import (MIXED_SLICES, NEW_SLICES, SLICES, channel_input,
-                            make_solver, slice_case)
+    from chip_smoke import (INLET_SLICES, MIXED_SLICES, NEW_SLICES, SLICES,
+                            channel_input, make_solver, slice_case)
     import hifiles_tpu_torch as ht
     from torch.profiler import ProfilerActivity, profile
 
-    names = SLICES + ["channel"] + NEW_SLICES + MIXED_SLICES
+    names = SLICES + ["channel"] + NEW_SLICES + MIXED_SLICES + INLET_SLICES
     if args.config not in names:
         raise SystemExit(f"profile_torch_tgv: --config one of {names}")
     if args.config == "channel":
@@ -191,7 +202,10 @@ def main():
         check=True, timeout=60).stdout.strip()
     print(card)
     if s._bc_fns is not None:
-        annotate_boundary(s._bc_fns)
+        annotate(s._bc_fns, ("ghost_state", "ldg_solution", "inv_common_flux",
+                             "visc_common_flux"), BOUNDARY)
+    if s.turb_inlet is not None:
+        annotate(s.turb_inlet, ("update",), INLET)
     s.run(2, dt=p.dt)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,

@@ -308,22 +308,29 @@ def test_wall_stress_flux_matches_jax(model, fix_vis):
 
 
 # ----------------------------------------------------------------------
-# what stays refused
+# turbulent inlets, AD_WALL, equation 1 and the inlet's fluctuations
 # ----------------------------------------------------------------------
 
 def test_turbulent_inlet_raises():
+    """A turbulent inlet (an inflow with inlet_type > 0 under LES), once
+    refused, now builds the white-noise inlet and steps."""
     p = duct_input(BCParams(name="Inflow", flag=SUB_IN_SIMP, rho=1.0,
-                            velocity=(1.0, 0.0, 0.0), inlet_type=1),
+                            velocity=(1.0, 0.0, 0.0), inlet_type=1,
+                            turb_1=1e-4),
                    DUCT["sub_simp"][1])
     p.LES, p.SGS_model = 1, 0
-    with pytest.raises(NotImplementedError, match="turbulent inlets"):
-        hifiles_tpu_torch.Solver(run_input_from(p), mesh_from(duct_mesh()),
+    s = hifiles_tpu_torch.Solver(run_input_from(p), mesh_from(duct_mesh()),
                                  device="cpu")
+    assert s.turb_inlet.inlet_type == 1 and s.turb_inlet.in_faces.size == 9
+    s.run(1, dt=p.dt)
+    assert np.isfinite(s.u).all()
+    assert float(s._fluc.abs().max()) > 0
 
 
 def test_ad_wall_raises():
-    """AD_WALL belongs to advection-diffusion: the boundary functions
-    report it and the residual refuses it by name."""
+    """AD_WALL, once refused, now builds: under equation 0 its candidate
+    ghost state is zero (bc.py:309-310 of the JAX package), as the JAX
+    boundary functions give it."""
     ts = hifiles_tpu_torch.Solver(run_input_from(channel_input()),
                                   mesh_from(channel_hex_mesh(3, 2, 2)),
                                   device="cpu")
@@ -332,30 +339,54 @@ def test_ad_wall_raises():
                  BCParams(name="Wall", flag=AD_WALL)]
     bc = make_bc_functions(run_input_from(p), ts.block, ts.rcfg, "cpu",
                            torch.float64)
-    assert any("AD_WALL" in m for m in bc.missing)
-    with pytest.raises(NotImplementedError, match="AD_WALL"):
-        trs.make_residual_soa(ts.block, ts.rcfg, "cpu", torch.float64, bc)
-    with pytest.raises(NotImplementedError, match="AD_WALL"):
-        hifiles_tpu_torch.Solver(run_input_from(p),
-                                 mesh_from(channel_hex_mesh(3, 2, 2)),
-                                 device="cpu")
+    assert AD_WALL in bc.flags
+    trs.make_residual_soa(ts.block, ts.rcfg, "cpu", torch.float64, bc)
+    hifiles_tpu_torch.Solver(run_input_from(p),
+                             mesh_from(channel_hex_mesh(3, 2, 2)),
+                             device="cpu")
+    js = JaxSolver(p, channel_hex_mesh(3, 2, 2))
+    jbc = jax_bc_functions(p, js.block, js.rcfg, jnp.float64)
+    u = np.asarray(js.u)[js.block.bdy_slot // js.ops.n_fpts, 0]
+    norm = js.block.norm_fpts[js.block.bdy_slot]
+    want = np.asarray(jbc.ghost_state(jnp.asarray(u), jnp.asarray(norm), 0))
+    got = bc.ghost_state(list(torch.as_tensor(u.transpose(2, 1, 0))),
+                         list(torch.as_tensor(norm.transpose(2, 1, 0))), 0)
+    got = torch.stack(got).numpy().transpose(2, 1, 0)
+    assert np.array_equal(got, want) and not want.any()
 
 
 def test_equation_1_raises():
+    """Equation 1, once refused, now builds on a box walled by AD_WALL:
+    one scalar field, the Lax-Friedrichs flux, zero ghost states."""
     p = channel_input()
-    p.equation = 1
-    with pytest.raises(NotImplementedError, match="advection-diffusion"):
-        hifiles_tpu_torch.Solver(run_input_from(p),
+    p.equation, p.riemann_solve_type, p.ic_form, p.test_case = 1, 1, 2, 2
+    p.wave_speed, p.diff_coeff = (1.0, 0.5, 0.25), 0.05
+    p.bc_list = [BCParams(name="Cyclic", flag=CYCLIC),
+                 BCParams(name="Wall", flag=AD_WALL)]
+    s = hifiles_tpu_torch.Solver(run_input_from(p),
                                  mesh_from(channel_hex_mesh(3, 2, 2)),
                                  device="cpu")
+    assert s.n_fields == 1 and s._bc_fns.scalar
+    assert np.isfinite(s.residual_norm(1)).all()
 
 
 def test_fluc_raises():
+    """The inlet's fluctuations, once refused, enter the inflow ghost
+    states: the residual with a seeded fluc against the JAX residual_soa
+    with the same fluc (AoS (Fb, nfp, d) there, planes (d, nfp, Fb)
+    here)."""
     js, ts, p = build("duct_sub_simp")
-    u = torch.from_numpy(perturbed(js, p))
-    fluc = torch.zeros((3, 9, 6), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="fluc"):
-        ts.residual_soa(u, fluc=fluc)
+    u = perturbed(js, p)
+    rng = np.random.default_rng(5)
+    fluc = 0.05 * rng.standard_normal(js.block.bdy_slot.shape + (3,))
+    jfn = jrs.make_residual_soa(js.block, js.rcfg, jnp.float64, js._bc_fns)
+    want = np.asarray(jfn(jnp.asarray(u), fluc=jnp.asarray(fluc)))
+    got = ts.residual_soa(torch.from_numpy(u), fluc=torch.as_tensor(
+        np.ascontiguousarray(fluc.transpose(2, 1, 0)))).numpy()
+    base = ts.residual_soa(torch.from_numpy(u)).numpy()
+    scale = np.abs(want).max()
+    assert np.abs(got - base).max() > 1e-6 * scale
+    assert np.abs(got - want).max() < 1e-10 * max(scale, 1.0)
 
 
 def test_bc_function_tables_match_jax():

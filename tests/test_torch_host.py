@@ -91,7 +91,8 @@ import numpy as np
 import torch
 torch.set_num_threads(1)
 import hifiles_tpu_torch as ht
-from chip_smoke import (channel_input, make_solver, mixed_wall_mesh,
+from chip_smoke import (channel_input, duct_mesh, make_solver,
+                        mixed_channel_mesh, mixed_wall_mesh,
                         periodic_tri_mesh, quad_wall_input, tgv_input,
                         vortex_input)
 for name in ("plain", "smag", "overint", "rans", "shock"):
@@ -127,6 +128,34 @@ for mesh, p in ((ht.periodic_mixed_mesh_2d(3, 3, -10, 10, -10, 10),
     assert np.isfinite(s.residual_norm(1)).all(), s.cts
 assert {"hifiles_tpu_torch.solver.multiblock",
         "hifiles_tpu_torch.solver.residual_mixed_soa"} <= set(sys.modules)
+# turbulent inlets (SEM and white noise, the default device draws) and
+# advection-diffusion, on Solver and MixedSolver
+from chip_smoke import adv_diff_input, les_duct_input, les_input
+for inlet_type in (1, 2):
+    s = ht.Solver(les_input(inlet_type), ht.channel_quad_mesh(
+        4, 2, 0.0, 2.0, 0.0, 1.0), device="cpu", dtype=torch.float64)
+    assert s.turb_inlet.inlet_type == inlet_type
+    s.run(2, dt=1e-5)
+    assert np.isfinite(s.residual_norm(1)).all(), inlet_type
+s = ht.Solver(les_duct_input(order=1, n_eddy=8), duct_mesh(2), device="cpu",
+              dtype=torch.float64)
+s.run(1, dt=1e-5)
+assert np.isfinite(s.residual_norm(1)).all()
+s = ht.MixedSolver(les_input(2), mixed_channel_mesh(), device="cpu",
+                   dtype=torch.float64)
+s.run(1, dt=1e-5)
+assert np.isfinite(s.residual_norm(1)).all()
+for mesh in (ht.periodic_quad_mesh(3, 3, -1, 1, -1, 1),
+             ht.periodic_hex_mesh(2, 2, 2, -1, 1, -1, 1, -1, 1)):
+    p = adv_diff_input(order=2, dims=mesh.n_dims)
+    s = ht.Solver(p, mesh, device="cpu", dtype=torch.float64)
+    s.run(2, dt=p.dt)
+    assert np.isfinite(s.compute_error(2)).all()
+s = ht.MixedSolver(adv_diff_input(order=2, dims=2), ht.periodic_mixed_mesh_2d(
+    2, 2, -1, 1, -1, 1), device="cpu", dtype=torch.float64)
+s.run(1, dt=1e-3)
+assert np.isfinite(s.residual_norm(1)).all()
+assert "hifiles_tpu_torch.solver.turb_inlet" in sys.modules
 # python -m hifiles_tpu_torch on a tiny deck: 2 steps of the TGV on 3^3
 # hexes, p=1, with plots, history and an ASCII restart
 import os, runpy, tempfile
@@ -161,8 +190,10 @@ def test_port_runs_with_jax_blocked():
     Solvers, the walled, forced, averaged channel (with and without a wall
     model), a quad, a tri and a tet Solver, and MixedSolvers on a tri+quad
     box, a wall-modelled tri+quad channel, a wall-modelled prism/tet
-    channel and a prism box, and runs ``python -m hifiles_tpu_torch`` on a
-    tiny deck on the CPU, with every import of JAX and of the JAX package
+    channel and a prism box; SEM and white-noise inlets on quad and hex
+    Solvers and a tri+quad MixedSolver; advection-diffusion on quads, hexes
+    and tri+quads; and runs ``python -m hifiles_tpu_torch`` on a tiny deck
+    on the CPU, with every import of JAX and of the JAX package
     hifiles_tpu refused."""
     env = dict(os.environ, OMP_NUM_THREADS="1")
     res = subprocess.run([sys.executable, "-c", _NO_JAX, ROOT],

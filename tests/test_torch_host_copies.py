@@ -306,3 +306,30 @@ def test_mixed_flat_slot_tables_cover_each_slot_once(case):
     assert (faces.size > 0) == (case == "prism_tet")
     assert np.all(np.diff(faces) >= 0)
     assert (mt.bdy_slot[faces] == T.slot_b[0][:, None]).any(axis=1).all()
+
+
+@pytest.mark.parametrize("mode", [0, 1])
+def test_inlet_host_setup_identical(mode):
+    """turb_inlet.inlet_host_setup (numpy, the eddy box, length scale,
+    area weights and seeded initial eddies) on the SEM channel's block,
+    field by field against the JAX package's."""
+    import sys
+    sys.path.insert(0, os.path.dirname(__file__))
+    from test_turb_inlet import les_channel_input
+    from hifiles_tpu.solver.solver import Solver as JaxSolver
+    from hifiles_tpu.solver.turb_inlet import inlet_host_setup as jax_setup
+    import hifiles_tpu_torch
+    from hifiles_tpu_torch.solver.turb_inlet import inlet_host_setup
+    p = les_channel_input(inlet_type=2, n_eddy=16, mode=mode)
+    mesh = jgen.channel_quad_mesh(6, 3, 0.0, 2.0, 0.0, 1.0)
+    js = JaxSolver(p, mesh)
+    ts = hifiles_tpu_torch.Solver(run_input_from(p), mesh_from(mesh),
+                                  device="cpu")
+    a, b = jax_setup(p, js.block, 7), inlet_host_setup(ts.p, ts.block, 7)
+    assert sorted(vars(a)) == sorted(vars(b))
+    for k, v in vars(a).items():
+        w = getattr(b, k)
+        if isinstance(v, np.ndarray):
+            assert v.dtype == w.dtype and np.array_equal(v, w), k
+        else:
+            assert v == w, k

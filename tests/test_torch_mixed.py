@@ -19,8 +19,7 @@ import jax.numpy as jnp
 
 from hifiles_tpu.config.params import (ADIABAT_WALL, CYCLIC, BCParams,
                                        RunInput)
-from hifiles_tpu.mesh.generate import (channel_mixed_mesh_2d,
-                                       channel_prism_tet_mesh,
+from hifiles_tpu.mesh.generate import (channel_prism_tet_mesh,
                                        periodic_mixed_mesh_2d,
                                        periodic_prism_mesh)
 from hifiles_tpu.solver.multiblock import MixedSolver as JaxMixedSolver
@@ -34,7 +33,6 @@ from test_face_path import tgv_input  # noqa: E402
 from test_mixed import vortex_input  # noqa: E402
 from test_mixed_wall_model import _mixed_wall_mesh, _wm_input  # noqa: E402
 from test_rans_viscous_bc import _rans_channel_input  # noqa: E402
-from test_turb_inlet import les_channel_input  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -175,20 +173,9 @@ def test_mixed_and_prism_meshes_need_mixed_solver():
         assert s.compute_dt() == JaxMixedSolver(p, mesh).compute_dt()
 
 
-def turbulent_inlet():
-    p = les_channel_input(inlet_type=2, n_eddy=8)
-    return p, channel_mixed_mesh_2d(4, 2, 0.0, 2.0, 0.0, 1.0)
-
-
 def rans_hllc():
     p, mesh = rans_channel()
     p.riemann_solve_type = 3
-    return p, mesh
-
-
-def equation_1():
-    p, mesh = vortex_input(order=2), mixed_box()
-    p.equation = 1
     return p, mesh
 
 
@@ -205,15 +192,14 @@ def patched():
 
 
 # what no JAX path runs (RANS+HLLC: the deck parsers refuse the pair,
-# config/params.py:467-471), what the JAX MixedSolver leaves out (patch,
-# a per-element dt), or what the port has no code for yet: MixedSolver
-# refuses each by name, when it is built or, for the per-element dt, when
-# it is asked to step with one (dt_type 2 builds: its compute_dt gives one
-# global dt, as the JAX MixedSolver's does)
+# config/params.py:467-471) or what the JAX MixedSolver leaves out (patch,
+# a per-element dt): MixedSolver refuses each by name, when it is built
+# or, for the per-element dt, when it is asked to step with one (dt_type 2
+# builds: its compute_dt gives one global dt, as the JAX MixedSolver's
+# does).  Equation 1 and turbulent inlets run (test_torch_adv_diff.py,
+# test_torch_turb_inlet.py).
 RAISES = {
     "rans_hllc": (rans_hllc, "SA-RANS with HLLC"),
-    "equation_1": (equation_1, "advection-diffusion"),
-    "turbulent_inlet": (turbulent_inlet, "turbulent inlets"),
     "local_dt": (local_dt, "per-element dt"),
     "patch": (patched, "patch"),
 }

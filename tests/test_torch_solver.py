@@ -150,8 +150,9 @@ def test_local_dt_raises():
 
 
 def test_boundary_faces_raise():
-    """Boundary faces need the boundary functions, and those refuse a
-    turbulent inlet (an inflow with inlet_type > 0 under LES) by name."""
+    """Boundary faces need the boundary functions; with them the residual
+    builds, a turbulent inlet's group included (an inflow with
+    inlet_type > 0 under LES, refused before the inlets were ported)."""
     mesh = channel_hex_mesh(3, 2, 3)
     dc = np.array([2 * np.pi, 0.0, np.pi])
     conn = build_faces(mesh, {0: CYCLIC, 1: ADIABAT_WALL}, dc)
@@ -170,8 +171,8 @@ def test_boundary_faces_raise():
                           velocity=(1.0, 0.0, 0.0), inlet_type=1)]
     bc = make_bc_functions(run_input_from(p), block, cfg, "cpu",
                            torch.float64)
-    with pytest.raises(NotImplementedError, match="turbulent inlets"):
-        make_residual_soa(block, cfg, "cpu", torch.float64, bc)
+    assert SUB_IN_SIMP in bc.flags
+    make_residual_soa(block, cfg, "cpu", torch.float64, bc)
 
 
 def test_cuda_device_without_cuda_raises():
