@@ -10,7 +10,8 @@ prints no result line):
                and print ptxas's registers and spills per instantiation;
   3. kernel  - hold each variant of the volume kernel (d = 3 and d = 2)
                against its plain PyTorch version on the card at the main
-               paths' shapes (f32 and f64, broadcast and full geometry),
+               paths' shapes, the sharded cells' shards included (f32 and
+               f64, broadcast and full geometry),
                time both, and compute the least time the card could take
                (bytes moved at 3.35 TB/s, operations at 67 TFLOP/s f32);
                the d = 2 and mixed-block variants timed again with the L2
@@ -31,7 +32,14 @@ prints no result line):
                quad channel and the tri+quad box; SEM and white-noise
                inlets on the quad channel and a 4^3 duct and SEM on the
                tri+quad channel, the inlet's draws one numpy stream
-               replayed on both devices;
+               replayed on both devices; then element-sharded runs
+               (parallel.ShardedSolver, ShardedMixedSolver), every shard
+               on the card, against the same shards on the CPU and the
+               single-device solver on the card (f64, 2 steps, 1e-11):
+               the 4^3 TGV in 4 shards, the walled quad channel in 7 of
+               unequal size, the channel's small twin in 3, a SEM duct in
+               4, the tri+quad box and the wall-modelled prism/tet channel
+               in 4;
   5. reference - the isentropic vortex (16^2 quads, p=3, f64, 100 steps)
                against the reference binary's L2 error row, and the 8^3
                hex, tet, tri+quad and prism over-integration cases, the
@@ -42,9 +50,11 @@ prints no result line):
                bench.py (TGV p=4 on 16^3 periodic hexes, f32) and its
                `channel` case (forced plane-channel LES on 16^3 hexes, p=4,
                f32, bench.run_channel) for 10 + 10 steps each, gated on
-               bench.GOLDENS; the `quad` (bench.mixed_input's vortex, p=4,
-               96^2 quads) and `tet` (the TGV deck, p=4, 12^3 Kuhn tets)
-               slices gated on TORCH_GOLDENS; bench.py's `mixed` (the
+               bench.GOLDENS (the `channel` then 40 steps more, ungated,
+               logging whether it stays finite); the `quad`
+               (bench.mixed_input's vortex, p=4, 96^2 quads) and `tet`
+               (the TGV deck, p=4, 12^3 Kuhn tets) slices gated on
+               TORCH_GOLDENS; bench.py's `mixed` (the
                vortex on the 96^2 tri+quad box, p=4) and `mixed3d` (the
                wall-modelled prism/tet LES channel, p=2) cases through
                MixedSolver, gated on bench.GOLDENS; `sem` (a WALE LES duct,
@@ -57,7 +67,13 @@ prints no result line):
                the kernels' launch counts read around each run; the rates
                of `quad`, `tet`, `mixed`, `mixed3d`, `sem` and `advdiff`
                beside `plain` from 8 interleaved 10-step repeats, and
-               their launches per RK stage;
+               their launches per RK stage; then the sharded cells, all
+               shards on the card: `plain` in 4 shards, `channel` in 3
+               (1,366/1,365/1,365 elements) and `mixed3d` in 4 through
+               ShardedMixedSolver, 10 + 10 steps gated on bench.GOLDENS,
+               the volume kernel launched on every shard's blocks at
+               every stage, their rates beside `plain` from 4 interleaved
+               repeats and their launches per RK stage;
   7. driver  - `python3 -m hifiles_tpu_torch <deck>` as a subprocess on
                the `plain` case written as a deck and a Gambit file (TGV
                p=4 on 16^3 hexes, f32, 20 steps): its iter-20 row gated on
@@ -65,13 +81,22 @@ prints no result line):
                files parsed, its volume kernel launches, its wall seconds
                per part and its launches per RK stage (a profiled chunk);
                then a restart from the ASCII dump to step 30, held to an
-               uninterrupted 30-step run; and card-vs-CPU f64 cases of
-               compute_dt (dt_type 1 and 2), gradient_fn, sensor_fn and
-               compute_forces, the Couette case against the reference
-               binary's error rows, and, with h5py, an HDF5 restart round
-               trip and a CGNS write;
+               uninterrupted 30-step run; then the same deck with
+               `--devices 4 --profile` (4 shards on the card): its iter-20
+               row gated on bench.GOLDENS["plain"], its history rows held
+               to the single-device run's (residual norms at rtol 1e-3,
+               integral quantities at 1e-6), its files parsed,
+               its volume kernel launches, wall seconds and launches per
+               RK stage; and card-vs-CPU f64 cases of compute_dt (dt_type
+               1 and 2), gradient_fn, sensor_fn and compute_forces, the
+               Couette case against the reference binary's error rows,
+               and, with h5py, an HDF5 restart round trip and a CGNS
+               write;
   8. checks  - no module of JAX or of the JAX package was imported.
-The last two lines are the kernel record and {"ok": true, "device": ...}.
+The last two lines are the kernel record (each variant at one shape, its
+launches summed over the paths that launch it at that shape, split in
+``launches_by_path``: the shards of the sharded cells are variants of
+their own) and {"ok": true, "device": ...}.
 The script imports nothing of JAX and nothing of the JAX package.
 """
 
@@ -183,6 +208,14 @@ IC_SNAPSHOTS = {}
 # bench.py's mixed-mesh cases, through MixedSolver, gated on bench.GOLDENS
 MIXED_SLICES = ["mixed", "mixed3d"]
 N_RATE_REPEATS = 8
+# the sharded cells (parallel.ShardedSolver / ShardedMixedSolver, all
+# shards on the one card): name -> (slice, shards); their rates are taken
+# beside `plain` in SHARDED_REPEATS interleaved repeats
+SHARDED_SLICES = {"plain x4": ("plain", 4), "channel x3": ("channel", 3),
+                  "mixed3d x4": ("mixed3d", 4)}
+SHARDED_REPEATS = 4
+# the driver's sharded run, its single-device run (phase 7) the reference
+DRIVER_SHARDS = 4
 # the volume kernel's variants timed again with the L2 flushed (their
 # inputs, 9-45 MB, fit the H100's 50 MB of L2), and the flush's size
 L2_FLUSHED = ["ns_2d", "smagorinsky_2d", "rans_2d", "mixed_quad", "mixed_tri",
@@ -460,7 +493,8 @@ def slice_case(name):
     4, 4): 8,192 prisms near the wall and 24,576 tets above, p=2; `sem`,
     les_duct_input on duct_mesh(16) (4,096 hexes, p=4, a 1000-eddy SEM
     inlet on its 256 x- faces); `advdiff`, adv_diff_input on the 16^3 box
-    [-1, 1]^3 (4,096 hexes, p=4, one field) with dt ADVDIFF_DT."""
+    [-1, 1]^3 (4,096 hexes, p=4, one field) with dt ADVDIFF_DT;
+    `channel`, bench.run_channel's deck on channel_hex_mesh(16, 16, 16)."""
     from hifiles_tpu_torch import (RunInput, channel_prism_tet_mesh,
                                    periodic_hex_mesh, periodic_mixed_mesh_2d,
                                    periodic_quad_mesh, periodic_tet_mesh)
@@ -482,6 +516,9 @@ def slice_case(name):
         p = adv_diff_input(order=4)
         p.dt = ADVDIFF_DT
         return p, periodic_hex_mesh(16, 16, 16, -1, 1, -1, 1, -1, 1)
+    if name == "channel":
+        from hifiles_tpu_torch import channel_hex_mesh
+        return channel_input(order=4), channel_hex_mesh(16, 16, 16)
     return tgv_input(order=4), periodic_tet_mesh(12, 12, 12)
 
 
@@ -841,6 +878,22 @@ VARIANTS = [
          geos=("full",), path="mixed3d", per_block=True),
     dict(name="mixed3d_tet", F=5, prm=dict(sgs=0), U=10, E=24576,
          geos=("full",), path="mixed3d", per_block=True),
+    # the shards of the sharded cells (near-balanced contiguous
+    # partitions), their launches matched by (variant, U, E): `plain` x4's
+    # 1,024 hexes a shard, through the API and the driver's --devices 4
+    # (broadcast geometry); `channel` x3's 1,366 and 1,365 (geometry
+    # broadcast, wall distance full); `mixed3d` x4's 2,048 prisms and
+    # 6,144 tets (full geometry)
+    dict(name="ns_shard", F=5, prm={}, E=1024,
+         path=("plain x4", "driver --devices"), per_block=True),
+    dict(name="smagorinsky_mixed_stride_shard", F=5, prm=dict(sgs=0),
+         E=1366, geos=("mixed",), path="channel x3", per_block=True),
+    dict(name="smagorinsky_mixed_stride_shard_less", F=5, prm=dict(sgs=0),
+         E=1365, geos=("mixed",), path="channel x3", per_block=True),
+    dict(name="mixed3d_prism_shard", F=5, prm=dict(sgs=0), U=18, E=2048,
+         geos=("full",), path="mixed3d x4", per_block=True),
+    dict(name="mixed3d_tet_shard", F=5, prm=dict(sgs=0), U=10, E=6144,
+         geos=("full",), path="mixed3d x4", per_block=True),
 ]
 # a viscous case whose viscous, SGS and SA terms are not lost in the
 # inviscid flux's scale (SGS cutoff delta ~ 1, mu = 0.05)
@@ -1286,7 +1339,9 @@ def phase_channel(card, counts):
     """bench.py's `channel` case on the card through the port's entry
     points (bench.run_channel: the deck, 16^3 channel hexes, p=4, f32,
     10 + 10 steps), gated row by row on bench.GOLDENS["channel"]; records
-    its launch counts by variant in ``counts``."""
+    its launch counts by variant in ``counts``; then, ungated, 40 steps
+    more in 10-step chunks, logging whether the state stays finite (the
+    sharded `channel`'s repeats restart from the IC for this reason)."""
     import numpy as np
     import torch
     import bench
@@ -1336,6 +1391,15 @@ def phase_channel(card, counts):
         raise AssertionError(f"volume_tdisf[smagorinsky] launched {smag} "
                              "times on the channel slice, expected >= "
                              f"{2 * 10 * s.n_stages}")
+    for step in range(30, 61, 10):
+        s.run(10, dt=p.dt)
+        u = s.u_soa
+        finite = bool(torch.isfinite(u).all())
+        log(f"slice channel past its gate, step {step}: state finite "
+            f"{finite}, max |u| {u.abs().max().item():.6e}, next body force "
+            f"{s.inflow_massflux()[2]:.6e} (ungated)")
+        if not finite:
+            break
     return rate
 
 
@@ -1353,26 +1417,33 @@ def launches_per_stage(s, dt):
                if ev.device_type == cuda) / s.n_stages
 
 
-def phase_rates(card, runs):
+def phase_rates(card, runs, repeats=N_RATE_REPEATS, fresh=()):
     """The rate of each of ``runs`` (name -> (solver, deck)): median and
-    quartiles of N_RATE_REPEATS 10-step repeats, the slices taking turns so
-    that both see the same host; then launches per RK stage.  Returns the
-    medians by name."""
+    quartiles of ``repeats`` 10-step repeats, the slices taking turns so
+    that both see the same host; then launches per RK stage.  The runs
+    named in ``fresh`` go back to their state at the call before every
+    repeat (a deck that stays finite only for its gated steps).  Returns
+    the medians by name."""
     import numpy as np
     import torch
     rates = {name: [] for name in runs}
-    for _ in range(N_RATE_REPEATS):
+    snaps = {name: runs[name][0].snapshot() for name in fresh}
+    for _ in range(repeats):
         for name, (s, p) in runs.items():
+            if name in snaps:
+                s.restore(snaps[name])
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             s.run(10, dt=p.dt)
             torch.cuda.synchronize()
             rates[name].append(s.dof * s.n_stages
                                * 10 / (time.perf_counter() - t0))
+    for name in snaps:
+        runs[name][0].restore(snaps[name])
     for name, (s, p) in runs.items():
         q1, med, q3 = np.percentile(rates[name], [25, 50, 75])
         log(f"rate {name}: median {med:.6e} [{q1:.6e}, {q3:.6e}] "
-            f"DOF*RK-stage/s over {N_RATE_REPEATS} interleaved 10-step "
+            f"DOF*RK-stage/s over {repeats} interleaved 10-step "
             f"repeats; {launches_per_stage(s, p.dt):.1f} launches per RK "
             f"stage; on [{card}]")
         if not np.isfinite(s.residual_norm(1)).all():
@@ -1448,7 +1519,8 @@ def phase_driver(card, api_solver, api_rate):
     iter-30 history row must equal an uninterrupted 30-step run's (rtol
     1e-5), that run profiling its first 10-step chunk for the launches per
     RK stage.  ``api_solver`` and ``api_rate`` are the API's `plain` run
-    and its median rate, printed beside the driver's."""
+    and its median rate, printed beside the driver's.  Returns the first
+    run's history rows."""
     import numpy as np
     from hifiles_tpu_torch import periodic_hex_mesh
     from hifiles_tpu_torch.mesh.gambit import write_gambit
@@ -1483,6 +1555,7 @@ def phase_driver(card, api_solver, api_rate):
     if not (np.isfinite(row).all() and np.all(rel < rtol)):
         raise AssertionError(f"driver's iter-20 row off the golden: {row}")
     log(f"driver plain files: {check_driver_files(d, 20)}")
+    _, rows_first = history_rows(os.path.join(d, "history.plt"))
     ns_key = next(v["key"] for v in VARIANTS if v["name"] == "ns")
     log(f"driver plain volume_tdisf launches in its process: {launches}")
     if launches.get(ns_key, 0) <= 0:
@@ -1535,6 +1608,239 @@ def phase_driver(card, api_solver, api_rate):
     log(f"driver plain launches per RK stage {n_dev / 50:.1f} ({n_dev} "
         "device kernels, copies and memsets in its profiled first chunk: "
         "10 steps of 5 stages and one monitor residual)")
+    return rows_first
+
+
+def small_sharded():
+    """name -> (deck, mesh, shards) of the sharded card-vs-CPU runs: the
+    4^3 p=3 TGV in 4 shards; the walled quad channel (8 x 4, p=3) in 7
+    shards of unequal size; the forced LES channel's small twin (4 x 4 x 2,
+    p=2) in 3; the 4^3 SEM duct (p=2) in 4, its draws one numpy stream;
+    through ShardedMixedSolver the tri+quad box with Smagorinsky LES and
+    the wall-modelled prism/tet channel of small_mixed(), in 4 each."""
+    from hifiles_tpu_torch import channel_hex_mesh, periodic_hex_mesh
+    mixed = small_mixed()
+    return {
+        "tgv x4": (tgv_input(order=3), periodic_hex_mesh(4, 4, 4), 4),
+        "quad_channel x7": (quad_wall_input(), quad_wall_mesh(), 7),
+        "channel x3": (channel_input(order=2), channel_hex_mesh(4, 4, 2), 3),
+        "sem_duct x4": (les_duct_input(order=2, n_eddy=40), duct_mesh(4), 4),
+        "mixed_les x4": mixed["mixed_les"] + (4,),
+        "prism_tet_wm x4": mixed["prism_tet_wm"] + (4,),
+    }
+
+
+def make_sharded(p, mesh, n, device, dtype):
+    """The port's ShardedSolver, or its ShardedMixedSolver for a mesh of
+    several element types or of prisms, in ``n`` shards on ``device``
+    (select_devices: on the card, round-robin over the visible cards)."""
+    import numpy as np
+    from hifiles_tpu_torch import PRISM
+    from hifiles_tpu_torch.parallel import (ShardedMixedSolver,
+                                            ShardedSolver, select_devices)
+    types = np.unique(mesh.ctype)
+    mixed = types.size > 1 or int(types[0]) == PRISM
+    return (ShardedMixedSolver if mixed else ShardedSolver)(
+        p, mesh, devices=select_devices(n, device), dtype=dtype)
+
+
+def phase_sharded_small(counts):
+    """Each case of small_sharded() in f64 for 2 steps: its shards on the
+    card against the same shards on the CPU and against the single-device
+    solver on the card (Solver or MixedSolver), states held at
+    1e-11 * max(scale, 1); the inlet case replays one numpy draw stream
+    on all three.  Adds each card run's launch counts to ``counts``."""
+    import numpy as np
+    import torch
+    from hifiles_tpu_torch.solver.turb_inlet import ReplayDraws
+    from hifiles_tpu_torch.solver.volume import volume_tdisf
+    f64 = torch.float64
+    for name, (p, mesh, n) in small_sharded().items():
+        gpu = make_sharded(p, mesh, n, "cuda", f64)
+        cpu = make_sharded(p, mesh, n, "cpu", f64)
+        one = make_solver(p, mesh, name, "cuda", f64)
+        if one.turb_inlet is not None:
+            draws = numpy_draws(one.turb_inlet, 2)
+            for s in (gpu, cpu, one):
+                s.set_inlet_draws(ReplayDraws(draws, s.device, s.dtype))
+        volume_tdisf.by_variant.clear()
+        gpu.run(2, dt=p.dt)
+        torch.cuda.synchronize()
+        run_counts = dict(volume_tdisf.by_variant)
+        cpu.run(2, dt=p.dt)
+        one.run(2, dt=p.dt)
+        ug, uc = (flat(s.gather_u()) for s in (gpu, cpu))
+        u1 = flat(one.u)
+        scale = max(np.abs(uc).max(), 1.0)
+        e_cpu = np.abs(ug - uc).max() / scale
+        e_one = np.abs(ug - u1).max() / scale
+        need = 2 * one.n_stages * len(gpu._blocks)
+        log(f"sharded small {name} f64 {type_names(mesh)} E={mesh.n_cells} "
+            f"p={p.order}, shard sizes "
+            f"{[sum(E for _, E in sh) for sh in gpu._shard_shapes]}: card vs "
+            f"CPU shards {e_cpu:.3e}, vs the card's single-device solver "
+            f"{e_one:.3e} (of max(scale, 1), bound 1e-11); launches "
+            f"{run_counts}")
+        if not (np.isfinite(ug).all() and e_cpu <= 1e-11 and e_one <= 1e-11
+                and sum(run_counts.values()) >= need):
+            raise AssertionError(f"sharded {name}: card shards disagree with "
+                                 "the CPU or the single-device run, or "
+                                 f"volume_tdisf ran < {need} times")
+        counts["sharded " + name] = run_counts
+
+
+def phase_sharded(card, counts, plain):
+    """The sharded cells of SHARDED_SLICES at full width, f32, all shards
+    on the one card, through the API: 10 + 10 steps each, gated row by
+    row as the single-device slice is (`channel` row 3 at 0.25); the
+    volume kernel launched on every shard's every block at every RK stage
+    (shards x blocks x stages, and the monitor's); then their rates beside
+    single-device `plain` (``plain``: its solver and deck) in
+    SHARDED_REPEATS interleaved repeats, and launches per RK stage; the
+    `channel` repeats each start from its initial state: the deck's body
+    force grows about 100-fold every 10 steps at bench.run_channel's dt,
+    and scripts/shard_controls.py on an H100 read the single-device run
+    non-finite by step 60 in f32 and by step 70 in f64, the 3 shards at the
+    same steps (phase_channel logs the single-device f32 run's).  Records
+    launch counts by variant and by block shape in ``counts``."""
+    import numpy as np
+    import torch
+    from hifiles_tpu_torch.solver.volume import volume_tdisf
+    runs, fresh = {"plain": plain}, ()
+    for cell, (name, n) in SHARDED_SLICES.items():
+        p, mesh = slice_case(name)
+        t0 = time.perf_counter()
+        s = make_sharded(p, mesh, n, "cuda", torch.float32)
+        if name == "channel":
+            ic = s.snapshot()
+        torch.cuda.synchronize()
+        log(f"sharded {cell}: setup {time.perf_counter() - t0:.2f} s "
+            f"({blocks_of(s)}; DOF {s.dof}; halo points per shard "
+            f"{[t.slot_h.size for t in s.soa_tables]})")
+        volume_tdisf.launches = 0
+        volume_tdisf.by_variant.clear()
+        volume_tdisf.by_shape.clear()
+        s.run(10, dt=p.dt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.run(10, dt=p.dt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        row = s.residual_norm(1)
+        launches = volume_tdisf.launches
+        counts[cell] = dict(volume_tdisf.by_variant)
+        counts[cell + ":blocks"] = dict(volume_tdisf.by_shape)
+        gold, rtol = slice_gate(name)
+        if name == "channel":
+            rtol = CHANNEL_RTOL
+        rel = np.abs(row - gold) / np.abs(gold)
+        need = (10 * 2 * s.n_stages + 1) * len(s._blocks)
+        log(f"sharded {cell} residual row "
+            f"[{', '.join(f'{v:.12e}' for v in row)}]; rel err per row "
+            f"{[float(f'{r:.3e}') for r in rel]} (gate {rtol})")
+        log(f"sharded {cell} rate {s.dof * s.n_stages * 10 / wall:.6e} "
+            f"DOF*RK-stage/s over 10 steps ({wall:.4f} s); volume_tdisf "
+            f"launches {launches} (shards x blocks x (stages + monitor) = "
+            f"{need}) {counts[cell]}; by block "
+            + ", ".join(f"U={U} E={E}: {k}" for (_, U, E), k in
+                        counts[cell + ":blocks"].items()) + f"; on [{card}]")
+        if not (np.isfinite(row).all() and np.all(rel < rtol)):
+            raise AssertionError(f"sharded {cell} residual row off the "
+                                 f"golden: {row}")
+        if launches < need:
+            raise AssertionError(f"volume_tdisf launched {launches} times "
+                                 f"on sharded {cell}, expected >= {need}")
+        if name == "channel":
+            s.restore(ic)
+            fresh = (cell,)
+        runs[cell] = (s, p)
+    rates = phase_rates(card, runs, SHARDED_REPEATS, fresh)
+    for cell in SHARDED_SLICES:
+        log(f"sharded {cell}: rate {rates[cell] / rates['plain']:.3f} x "
+            f"single-device plain's in the same turns")
+
+
+def phase_driver_sharded(card, counts, rows_one):
+    """``python3 -m hifiles_tpu_torch <deck> --devices DRIVER_SHARDS`` on
+    phase 7's `plain` deck and Gambit file (f32, 20 steps, all shards on
+    the card): its iter-20 row gated on bench.GOLDENS["plain"]; its
+    history rows against phase 7's single-device run's ``rows_one``
+    (iteration and time equal; the residual norms at rtol 1e-3 and the
+    integral quantities at 1e-6, between what sound and faulty halos read
+    in scripts/shard_controls.py on an H100: sound 3.4e-4 and 7.1e-8, the
+    partner's points of each halo face reversed 8.0 and 5.1e-5, the
+    receive buffers zeroed a NaN abort; a halo fault of the viscous flux
+    alone stays under both, and phase 4's f64 cases hold it); its files
+    parsed;
+    its volume kernel launches (in ``counts``), wall seconds per part and,
+    profiled, launches per RK stage."""
+    import numpy as np
+    d = os.path.join(ROOT, "build", "driver_tgv")
+    d4 = os.path.join(ROOT, "build", "driver_tgv_shards")
+    shutil.rmtree(d4, ignore_errors=True)
+    os.makedirs(d4)
+    shutil.copy(os.path.join(d, "run.deck"), d4)
+    shutil.copy(os.path.join(d, "tgv16.neu"), d4)
+    t0 = time.perf_counter()
+    out, launches, wall = run_driver(os.path.join(d4, "run.deck"), d4,
+                                     "--devices", str(DRIVER_SHARDS),
+                                     "--profile")
+    total = time.perf_counter() - t0
+    row = np.array(re.search(r"^iter +20 .*res: (.*)$", out, re.M)
+                   .group(1).split(), dtype=float)
+    gold, rtol = slice_gate("plain")
+    rel = np.abs(row - gold) / np.abs(gold)
+    log(f"driver plain --devices {DRIVER_SHARDS} iter-20 row "
+        f"[{', '.join(f'{v:.6e}' for v in row)}]; rel err per row "
+        f"{[float(f'{r:.3e}') for r in rel]} (gate {rtol})")
+    if not (re.search(rf"^shards: {DRIVER_SHARDS} on cuda:0 "
+                      rf"x{DRIVER_SHARDS}$", out, re.M)
+            and np.isfinite(row).all() and np.all(rel < rtol)):
+        raise AssertionError(f"sharded driver's iter-20 row off the golden "
+                             f"or its shards not on the card: {row}")
+    log(f"driver plain --devices {DRIVER_SHARDS} files: "
+        f"{check_driver_files(d4, 20)}")
+    head, rows = history_rows(os.path.join(d4, "history.plt"))
+    n_res = head[0].count('"res_')
+    worst_res = worst_int = 0.0
+    for a, b in zip(rows, rows_one):
+        if a[0] != b[0] or a[-2] != b[-2]:
+            raise AssertionError(f"history rows {a[:1]} / {b[:1]}: iteration "
+                                 "or time differ")
+        # the residual columns are log10 of the norms: compared as norms
+        ra, rb = 10.0 ** a[1:1 + n_res], 10.0 ** b[1:1 + n_res]
+        worst_res = max(worst_res, float((np.abs(ra - rb) / rb).max()))
+        worst_int = max(worst_int, float(
+            (np.abs(a[1 + n_res:-2] - b[1 + n_res:-2])
+             / np.abs(b[1 + n_res:-2])).max()))
+    log(f"driver plain --devices {DRIVER_SHARDS} history rows vs the "
+        f"single-device run's: residual norms max rel diff {worst_res:.3e} "
+        f"(gate 1e-3), integral quantities {worst_int:.3e} (gate 1e-6)")
+    if not (len(rows) == len(rows_one) == 2 and worst_res < 1e-3
+            and worst_int < 1e-6):
+        raise AssertionError("sharded driver's history differs from the "
+                             "single-device run's")
+    ns_key = next(v["key"] for v in VARIANTS if v["name"] == "ns")
+    counts["driver --devices"] = launches
+    counts["driver --devices:blocks"] = {
+        (key, U, E): k for key, U, E, k in json.loads(re.search(
+            r"^volume_tdisf launches by shape: (.*)$", out, re.M).group(1))}
+    need = DRIVER_SHARDS * 20 * 5
+    with open(os.path.join(d4, "torch_trace")) as f:
+        events = json.load(f)["traceEvents"]
+    n_dev = sum(1 for e in events if e.get("cat") in ("kernel", "gpu_memcpy",
+                                                      "gpu_memset"))
+    log(f"driver plain --devices {DRIVER_SHARDS}: process {total:.3f} s; "
+        f"steps 11-20 {wall['steps']:.4f} s, "
+        f"{wall['steps'] / 50 * 1e3:.4f} ms per RK stage; set-up "
+        f"{wall['solver set-up']:.3f} s; volume_tdisf launches {launches} "
+        f"(>= shards x stages = {need}), by (variant, U, E) "
+        f"{counts['driver --devices:blocks']}; {n_dev / 50:.1f} launches "
+        f"per RK stage in its profiled first chunk; on [{card}]")
+    if launches.get(ns_key, 0) < need:
+        raise AssertionError(f"volume_tdisf[ns] launched "
+                             f"{launches.get(ns_key, 0)} times by the "
+                             f"sharded driver, expected >= {need}")
 
 
 def phase_diagnostics(card):
@@ -1686,12 +1992,14 @@ def phase_diagnostics(card):
 
 
 def main():
+    t0 = time.perf_counter()
     card = phase_device()
     sys.path.insert(0, ROOT)
     phase_build()
     recs = phase_kernel()
     counts = {}
     phase_small(counts)
+    phase_sharded_small(counts)
     phase_reference(counts)
     runs = {name: phase_slice(card, name, counts) for name in SLICES}
     phase_channel(card, counts)
@@ -1701,8 +2009,11 @@ def main():
                 for name in NEW_SLICES + MIXED_SLICES + INLET_SLICES)
     phase_sem(card, *runs["sem"])
     rates = phase_rates(card, runs)
-    phase_driver(card, runs["plain"][0], rates["plain"])
+    phase_sharded(card, counts, runs["plain"])
+    rows_one = phase_driver(card, runs["plain"][0], rates["plain"])
+    phase_driver_sharded(card, counts, rows_one)
     phase_diagnostics(card)
+    log(f"chip_smoke: phases 1-7 in {time.perf_counter() - t0:.1f} s")
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "hifiles_tpu")]
     if loaded:
@@ -1710,20 +2021,25 @@ def main():
     import torch
     kernels = []
     for v in VARIANTS:
-        if v.get("per_block"):
-            n = counts[v["path"] + ":blocks"].get(
-                (v["key"], v["U"], v["E"]), 0)
-        else:
-            n = counts[v["path"]].get(v["key"], 0)
-        if n == 0:
-            raise AssertionError(f"volume_tdisf[{v['name']}] ({v['key']}) "
-                                 f"not launched on the {v['path']} run")
+        paths = v["path"] if isinstance(v["path"], tuple) else (v["path"],)
+        shape = (v["key"], v.get("U", 125), v.get("E", 4096))
+        by_path = {path: (counts[path + ":blocks"].get(shape, 0)
+                          if v.get("per_block")
+                          else counts[path].get(v["key"], 0))
+                   for path in paths}
+        for path, k in by_path.items():
+            if k == 0:
+                raise AssertionError(f"volume_tdisf[{v['name']}] "
+                                     f"({v['key']}) not launched on the "
+                                     f"{path} run")
         kernels.append(dict(
             name=f"volume_tdisf[{v['name']}]", dims=v.get("D", 3),
             route="cuda",
             source="hifiles_tpu_torch/csrc/volume_tdisf.cu",
             replaces="hifiles_tpu/solver/pallas_kernels.py:101",
-            launches=n, **recs[v["name"]]))
+            shape=dict(U=shape[1], E=shape[2]),
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            **recs[v["name"]]))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,12 @@ writing the same files as the JAX driver.  Its own options:
 ``--device cuda|cpu`` (the card unless the CPU is asked for), ``--f64``
 (float64; float32 otherwise) and ``--profile`` (a torch.profiler chrome
 trace of the first chunk in ``<outdir>/torch_trace``).  ``--devices N``
-(element-sharded runs) is not ported yet and raises.  A deck with
+runs the mesh as N shards (parallel.ShardedSolver, or
+parallel.ShardedMixedSolver for mixed and prism meshes) placed by
+parallel.select_devices on the cards of ``--device`` (round-robin), or on
+the CPU with ``--device cpu``; the writers read the single-device twin,
+into which the shards' state is gathered (driver.py:52-62, :85-131 of the
+JAX package), and a restart is scattered back onto the shards.  A deck with
 ``restart_ascii`` restarts from the ASCII file the run dumps
 (``Rest_<iter>_p0000.dat``), where the JAX driver reads only the HDF5 one;
 the reference reads both.
@@ -27,7 +32,7 @@ import sys
 import time
 
 USAGE = ("usage: python -m hifiles_tpu_torch <input_file> [--f64] "
-         "[--outdir D] [--profile] [--device cuda|cpu]")
+         "[--outdir D] [--profile] [--device cuda|cpu] [--devices N]")
 
 
 def load_mesh(run_input, deck_dir: str):
@@ -54,10 +59,10 @@ def _option(argv, name, default):
 def main(argv=None):
     """Run the deck named by argv[0]; returns the exit code.  Besides the
     JAX driver's lines it prints the volume kernel's launches by variant
-    and the wall seconds of each part of the run (mesh read, solver
-    set-up, restart read, the first chunk of steps, the later steps,
-    monitor, plots, restart write), the steps synchronised with the
-    card."""
+    and by (variant, U, E), and the wall seconds of each part of the run
+    (mesh read, solver set-up, restart read, the first chunk of steps, the
+    later steps, monitor, plots, restart write), the steps synchronised
+    with the card."""
     import numpy as np
     import torch
 
@@ -72,16 +77,13 @@ def main(argv=None):
     if not argv:
         print(USAGE)
         return 1
-    if "--devices" in argv:
-        raise NotImplementedError(
-            "hifiles_tpu_torch: --devices (element-sharded runs over "
-            "several GPUs) is not ported yet; it comes with the multi-GPU "
-            "slice")
     deck_path = argv[0]
     dtype = torch.float64 if "--f64" in argv else torch.float32
     profile = "--profile" in argv
     outdir = _option(argv, "--outdir", ".")
     device = _option(argv, "--device", "cuda")
+    # the `mpirun -np N bin/HiFiLES` analog (ref:src/HiFiLES.cpp:62-65)
+    n_dev = int(_option(argv, "--devices", 0))
     os.makedirs(outdir, exist_ok=True)
     wall = collections.Counter()
 
@@ -103,21 +105,31 @@ def main(argv=None):
     cts_present = np.unique(mesh.ctype)
     mixed = cts_present.size > 1 or int(cts_present[0]) == PRISM
     with timed("solver set-up"):
-        if mixed:
+        if n_dev:
+            from .parallel import (ShardedMixedSolver, ShardedSolver,
+                                   select_devices)
+            sharded = ShardedMixedSolver if mixed else ShardedSolver
+            solver = sharded(p, mesh, devices=select_devices(n_dev, device),
+                             dtype=dtype)
+            io_solver = solver.base
+        elif mixed:
             from .solver.multiblock import MixedSolver
-            solver = MixedSolver(p, mesh, device=device, dtype=dtype)
+            solver = io_solver = MixedSolver(p, mesh, device=device,
+                                             dtype=dtype)
         else:
             from .solver.solver import Solver
-            solver = Solver(p, mesh, device=device, dtype=dtype)
+            solver = io_solver = Solver(p, mesh, device=device, dtype=dtype)
     on_card = solver.device.type == "cuda"
     print(f"solver: order {p.order}, {solver.n_fields} fields, "
-          f"{solver.dof} DOF/field")
+          f"{solver.dof} DOF/field"
+          + (f", {n_dev} devices" if n_dev else ""))
 
     def sync():
-        """The solver the writers read: the one solver, until element-
-        sharded runs give the driver a twin to gather into (driver.py:
-        109-131)."""
-        return solver
+        """The solver the writers read: the single-device twin holding
+        the shards' gathered state, clock and featured carry, so that a
+        sharded run's files are a single-device run's (driver.py:
+        109-131); the solver itself otherwise."""
+        return solver.sync_twin() if n_dev else solver
 
     if p.restart_flag:
         with timed("restart read"):
@@ -125,28 +137,33 @@ def main(argv=None):
                 from .io.restart import read_restart_ascii
                 path = os.path.join(outdir, f"Rest_{p.restart_iter:09d}"
                                     "_p0000.dat")
-                t = read_restart_ascii(path, solver)
+                t = read_restart_ascii(path, io_solver)
             else:
                 path = restart_filename(outdir, p.restart_iter)
-                t = read_restart(path, solver)
+                t = read_restart(path, io_solver)
         print(f"restarted from {path} at t={t}")
         if p.patch:
             # patch applied on restart too (ref:src/solver.cpp:321-482);
-            # MixedSolver refuses patched decks when it is built
+            # MixedSolver and the sharded solvers refuse patched decks
+            # when they are built
             from .solver.ics import apply_patch
             solver.set_state(
                 apply_patch(p, solver.block.pos_upts,
                             np.asarray(solver.u, dtype=np.float64)),
                 np.zeros_like(solver.u), t)
+        if n_dev:
+            # distribute the restart state onto the shards
+            solver.scatter_u(io_solver.u)
+            solver.time = t
         i0 = p.restart_iter
     else:
         i0 = 0
 
-    hist = HistoryWriter(os.path.join(outdir, "history.plt"), solver)
+    hist = HistoryWriter(os.path.join(outdir, "history.plt"), io_solver)
     probes = None
     if p.probe:
         from .io.probes import setup_probes
-        probes = setup_probes(p, solver, outdir)
+        probes = setup_probes(p, io_solver, outdir)
     events = sorted({p.monitor_res_freq, p.plot_freq, p.restart_dump_freq,
                      getattr(p, "probe_freq", 0) or 0})
     chunk = max(1, min(e for e in events if e > 0))
@@ -167,12 +184,17 @@ def main(argv=None):
         n = min(chunk, i0 + p.n_steps - i)
         # the first chunk also pays the process's first launches
         with timed("steps" if i > i0 else "first chunk"):
-            solver.run(n, dt=solver.compute_dt())
+            # ShardedMixedSolver takes its dt from the twin, as the JAX
+            # driver does (driver.py:171-174)
+            solver.run(n, dt=(solver.compute_dt()
+                              if hasattr(solver, "compute_dt")
+                              else sync().compute_dt()))
             if on_card:
                 torch.cuda.synchronize()
         i += n
         if i % p.monitor_res_freq == 0 or i == i0 + p.n_steps:
             with timed("monitor"):
+                sync()
                 row = hist.write(i)
             res = row["residual"]
             # NaN abort (ref:src/output.cpp:2268-2275 HistoryOutput)
@@ -185,7 +207,7 @@ def main(argv=None):
             if p.forcing:
                 # mass-flux history of the body-forced inflow plane
                 # (ref:src/eles.cpp:5430-5453 massflux.dat)
-                mf = solver.inflow_massflux()
+                mf = io_solver.inflow_massflux()
                 if mf is not None:
                     with open(os.path.join(outdir, "massflux.dat"),
                               "a") as fh:
@@ -253,6 +275,8 @@ def main(argv=None):
 
     print("volume_tdisf launches: "
           + json.dumps(dict(volume_tdisf.by_variant)))
+    print("volume_tdisf launches by shape: "
+          + json.dumps([[*k, n] for k, n in volume_tdisf.by_shape.items()]))
     print("wall seconds: " + json.dumps(dict(wall)))
     print(f"total wall time {time.time() - t_start:.1f}s")
     return 0

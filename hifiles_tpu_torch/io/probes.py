@@ -5,9 +5,11 @@ solution sampling (opp_probe, ref:src/eles.cpp:3625-3633), and HDF5 probe
 files with an unlimited time axis (ref:src/output.cpp:1549-1752).
 
 Copied from hifiles_tpu/io/probes.py (lines 1-453) unchanged but for this
-paragraph.  The branches for element-sharded solvers (``base``, ``owner``,
-``pad_mask``, ``gather_u``) are kept as duck-typed paths; no solver of the
-port has those attributes yet.
+paragraph.  The branches for element-sharded solvers read the port's
+parallel.ShardedSolver (its single-device twin ``base``, ``owner`` and
+``pad_mask`` (n, El), and ``u``, the state padded to (n, El, U, F) on the
+host: a sample reads only the probes' elements) and ShardedMixedSolver
+(``base`` and the per-type ``gather_u``).
 """
 
 from __future__ import annotations

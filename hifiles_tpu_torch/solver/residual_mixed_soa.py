@@ -81,20 +81,27 @@ def make_mixed_residual_soa(mt: MixedMeshTables, cfg: ResidualConfig, device,
     offs = np.cumsum([0] + [k.n_slots for k in stages])
     assert [int(offs[i]) for i in range(len(blocks))] == \
         [mt.slot_off[ct] for ct in mt.cts] and offs[-1] == mt.n_slots
-    wm_index = None
-    if wm_tables is not None:
-        # per type: the boundary points of its wall-modelled faces, and
-        # each point's element and solution point (its face's)
-        per_ct, _ = wm_tables
-        face = bdy_point_faces(mt)
-        t = lambda a: torch.as_tensor(a, device=device)
-        wm_index = []
-        for ct in mt.cts:
-            faces, ele, upt = per_ct[ct]
-            row = -np.ones(mt.bdy_bcid.size, dtype=np.int64)
-            row[faces] = np.arange(faces.size)
-            cols = np.nonzero(row[face] >= 0)[0]
-            j = row[face[cols]]
-            wm_index.append((t(cols), t(ele[j]), t(upt[j])) if cols.size
-                            else (None, None, None))
-    return make_face_residual(stages, FA, ph, bc_fns, wm_index)
+    return make_face_residual(stages, FA, ph, bc_fns,
+                              mixed_wm_index(mt, wm_tables, device))
+
+
+def mixed_wm_index(mt: MixedMeshTables, wm_tables, device):
+    """make_face_residual's ``wm_index`` on a mixed mesh's boundary points:
+    per type, the boundary points of its wall-modelled faces (``wm_tables``
+    of multiblock.build_mixed_wm_tables) and each point's element and
+    solution point (its face's); None without wall models."""
+    if wm_tables is None:
+        return None
+    per_ct, _ = wm_tables
+    face = bdy_point_faces(mt)
+    t = lambda a: torch.as_tensor(a, device=device)
+    wm_index = []
+    for ct in mt.cts:
+        faces, ele, upt = per_ct[ct]
+        row = -np.ones(mt.bdy_bcid.size, dtype=np.int64)
+        row[faces] = np.arange(faces.size)
+        cols = np.nonzero(row[face] >= 0)[0]
+        j = row[face[cols]]
+        wm_index.append((t(cols), t(ele[j]), t(upt[j])) if cols.size
+                        else (None, None, None))
+    return wm_index

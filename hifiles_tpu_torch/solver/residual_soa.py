@@ -23,7 +23,10 @@ blocks: the blocks' flux-point rows side by side, (F, sum_t E_t*Pf_t), are
 the global slot space of a mixed mesh (residual_mixed_soa.py), and one
 block is the single-type case (``make_residual_soa``).  ``SoaTables`` and
 ``residual_mixed_soa.MixedSoaTables`` give it the slots to read and write
-and the shape of the face planes.
+and the shape of the face planes.  The tables of one shard of an
+element-sharded run (parallel/soa_sharding.py) add a third face class, the
+halo faces, whose other side lives on another shard: the face stage then
+stops at the two halo exchanges (``residual.stages``).
 """
 
 from __future__ import annotations
@@ -55,15 +58,32 @@ _REF_VOL = {1: 4.0, 4: 8.0, 0: 2.0, 2: 4.0 / 3.0, 3: 4.0}
 # ----------------------------------------------------------------------
 
 def check_coverage(slots, n_slots):
-    """Every element flux point is on exactly one face side, interior or
-    boundary (the JAX ``sel`` table check, residual_soa.py:262-274), so the
-    write-back stores need no atomics and leave no hole."""
+    """Every element flux point is on exactly one face side, interior,
+    boundary or halo (the JAX ``sel`` table check, residual_soa.py:262-274),
+    so the write-back stores need no atomics and leave no hole."""
     count = np.bincount(np.concatenate([s.ravel() for s in slots]),
                         minlength=n_slots)
     if count.size != n_slots or not np.all(count == 1):
         raise NotImplementedError(
             "hifiles_tpu_torch residual: flux points not covered exactly "
-            "once by the interior and boundary faces")
+            "once by the interior, boundary and halo faces")
+
+
+def orient_faces(slot_l, slot_r, Pf, nfp):
+    """Interior faces (Fi, nfp) of one element type oriented by the JAX
+    rule (L = the side with the smaller local face, residual_soa.py:104-119)
+    so that the face intermediates match the JAX ones.  L/R is arbitrary
+    physics-wise (the Riemann and LDG common fluxes are antisymmetric under
+    (l<->r, n->-n)); ties keep the original side.  A swapped face lists its
+    new l side in ascending local fpt order, carrying the pairing along."""
+    slot_l, slot_r = slot_l.copy(), slot_r.copy()
+    swap = (slot_l % Pf)[:, 0] // nfp > (slot_r % Pf)[:, 0] // nfp
+    if swap.any():
+        sl, sr = slot_l[swap], slot_r[swap]
+        o = np.argsort(sr % Pf, axis=1)
+        slot_l[swap] = np.take_along_axis(sr, o, axis=1)
+        slot_r[swap] = np.take_along_axis(sl, o, axis=1)
+    return slot_l, slot_r
 
 
 class SoaTables:
@@ -85,18 +105,8 @@ class SoaTables:
         ops = block.ops
         Pf = ops.n_fpts
         nfp = int(ops.n_fpts_per_face[0])
-        slot_l = block.int_slot_l.copy()
-        slot_r = block.int_slot_r.copy()
-        # L/R is arbitrary physics-wise (the Riemann and LDG common fluxes
-        # are antisymmetric under (l<->r, n->-n)); ties keep the original
-        # side.  A swapped face lists its new l side in ascending local fpt
-        # order, carrying the pairing along.
-        swap = (slot_l % Pf)[:, 0] // nfp > (slot_r % Pf)[:, 0] // nfp
-        if swap.any():
-            sl, sr = slot_l[swap], slot_r[swap]
-            o = np.argsort(sr % Pf, axis=1)
-            slot_l[swap] = np.take_along_axis(sr, o, axis=1)
-            slot_r[swap] = np.take_along_axis(sl, o, axis=1)
+        slot_l, slot_r = orient_faces(block.int_slot_l, block.int_slot_r,
+                                      Pf, nfp)
         slot_b = block.bdy_slot.reshape(-1, nfp)
         check_coverage([slot_l, slot_r, slot_b], block.n_eles * Pf)
         self.slot_l = np.ascontiguousarray(slot_l.T)
@@ -192,17 +202,27 @@ class BlockArraysSoa:
 
 
 class FaceArrays:
-    """The face tables ``T`` (SoaTables or MixedSoaTables) on the device:
-    the slot index tensors, the shapes of the interior and boundary face
-    planes, and the unit normals at the interior faces' l side and at the
-    boundary faces (d planes each), compressed along the face axis where
-    ``T.compress``."""
+    """The face tables ``T`` (SoaTables, MixedSoaTables or a shard's
+    soa_sharding.ShardSoaTables) on the device: the slot index tensors, the
+    shapes of the face planes, and the unit normals at the faces' l side
+    and at the boundary faces (d planes each), compressed along the face
+    axis where ``T.compress``.  ``sharded`` when ``T`` has halo faces,
+    whose columns then follow the interior faces' in the face planes:
+    ``slot_l`` reads their own side after the interior faces' l side, and
+    the r planes, read at ``slot_r`` (``shape_r``, the interior faces
+    only), end with their partner's side, read from the receive buffer at
+    ``recv_idx`` (``shape_h``); ``send`` lists the slots whose values the
+    shard sends, every ring offset's end to end."""
 
     def __init__(self, T, device, dtype):
         idx = lambda a: torch.as_tensor(a.reshape(-1), device=device)
-        self.slot_l, self.slot_r = idx(T.slot_l), idx(T.slot_r)
+        self.sharded = getattr(T, "slot_h", None) is not None
+        slot_l = (np.concatenate([T.slot_l, T.slot_h], axis=-1)
+                  if self.sharded else T.slot_l)
+        self.slot_l, self.slot_r = idx(slot_l), idx(T.slot_r)
         self.slot_b = idx(T.slot_b)
-        self.shape_i = T.slot_l.shape[:-1] + (-1,)
+        self.shape_i, self.shape_r = slot_l.shape, T.slot_r.shape
+        self.n_r = T.slot_r.shape[-1]
         self.shape_b = T.slot_b.shape[:-1] + (-1,)
         self.n_cols_b = T.slot_b.shape[-1]
         self.has_bdy = T.slot_b.size > 0
@@ -212,9 +232,12 @@ class FaceArrays:
             if T.compress:
                 return _geometry(n, n.ndim - 1, device, dtype)
             return _tensor(n, device, dtype)
-        self.norm = list(normals(T.slot_l))
+        self.norm = list(normals(slot_l))
         if self.has_bdy:
             self.norm_b = list(normals(T.slot_b))
+        if self.sharded:
+            self.recv_idx, self.send = idx(T.recv_idx), idx(T.send)
+            self.shape_h = T.slot_h.shape
 
 
 # ----------------------------------------------------------------------
@@ -738,7 +761,20 @@ def make_face_residual(stages, FA: FaceArrays, ph: Physics, bc_fns=None,
     flat slot tables ``FA``.  ``bc_fns`` gives the boundary faces' common
     values and ``ramp`` (a 0-d tensor) the BC ramp counter; ``wm_index``
     lists per block the (boundary plane column, element, solution point)
-    index tensors of the wall-model input state, or is None."""
+    index tensors of the wall-model input state, or is None.
+
+    On one shard of an element-sharded run (``FA.sharded``) the residual
+    is ``residual.stages(us, fluc, ramp, out)``, a generator that stops at
+    each halo exchange: it yields the send buffer (C, n_send), the values
+    at ``FA.send``, and takes the receive buffer in its place, first of
+    the flux-point states and then, viscous, of the element-side normal
+    viscous flux qn (soa_sharding.py:473-479, :703-710 of the JAX
+    package).  Each shard evaluates a halo face one-sided, with its own
+    side as L and its own outward normal, in the same pass as its
+    interior faces; the partner's qn carries the partner's outward
+    normal, the r-side convention (soa_sharding.py:570-578, :750-765), and
+    only the own side is written back.  The similarity flux rides qn, so
+    there is no third exchange."""
     cfg, d, nF = ph.cfg, ph.d, ph.nF
     gamma = cfg.gamma
     offs = np.cumsum([0] + [k.n_slots for k in stages])
@@ -762,14 +798,20 @@ def make_face_residual(stages, FA: FaceArrays, ph: Physics, bc_fns=None,
         """(C, S) -> the face planes (C, *shape) at ``slots``."""
         return x2.index_select(1, slots).view(x2.shape[0], *shape)
 
+    def with_partner(x_r, recv):
+        """The r planes (C, *shape_r) of the interior faces completed by the
+        halo faces' partner side from the receive buffer (C, n_recv)."""
+        return torch.cat([x_r, read(recv, FA.recv_idx, FA.shape_h)], dim=-1)
+
     def write(v_l, v_r, v_b=None):
-        """Per-side interior face values and the boundary faces' values
-        (C, *face plane) -> flux-point rows (C, S), the batched inverse of
-        read (ref:src/int_inters.cpp:217-220 writes point by point)."""
+        """Per-side face values and the boundary faces' values (C, *face
+        plane) -> flux-point rows (C, S), the batched inverse of read
+        (ref:src/int_inters.cpp:217-220 writes point by point); a halo
+        face's r side lives on another shard and is not written."""
         C = v_l.shape[0]
         out = torch.empty((C, n_slots), dtype=v_l.dtype, device=v_l.device)
         out.index_copy_(1, FA.slot_l, v_l.reshape(C, -1))
-        out.index_copy_(1, FA.slot_r, v_r.reshape(C, -1))
+        out.index_copy_(1, FA.slot_r, v_r[..., :FA.n_r].reshape(C, -1))
         if v_b is not None:
             out.index_copy_(1, FA.slot_b, v_b.reshape(C, -1))
         return out
@@ -785,13 +827,14 @@ def make_face_residual(stages, FA: FaceArrays, ph: Physics, bc_fns=None,
         return ws.view(nF, *(1,) * (len(FA.shape_b) - 1), -1).unbind(0)
 
     def face_states(us, ramp, fluc=None):
-        """Steps 1-2: the per-block flux-point rows (F, E_t, Pf_t), the
-        interior faces' two sides (F, *face plane), and the boundary faces'
-        own states and inviscid ghost states (F planes each; None without
-        boundary faces).  The inlet's ``fluc`` enters the ghost states
-        once, here: the LDG common solution and the boundary viscous flux
-        reuse them away from walls (bc.BCFunctions.ldg_solution), as the
-        JAX closures rebuild them with the same fluc (bc.py:327-357)."""
+        """Steps 1-2: the per-block flux-point rows (F, E_t, Pf_t) and
+        side by side (F, S), the interior faces' two sides (F, *face
+        plane), and the boundary faces' own states and inviscid ghost
+        states (F planes each; None without boundary faces).  The inlet's
+        ``fluc`` enters the ghost states once, here: the LDG common
+        solution and the boundary viscous flux reuse them away from walls
+        (bc.BCFunctions.ldg_solution), as the JAX closures rebuild them
+        with the same fluc (bc.py:327-357)."""
         # 1. extrapolate to flux points: one GEMM per block
         ufs = [k.to_fpts(u) for k, u in zip(stages, us)]  # (F, E_t, Pf_t)
         uf2 = flat(ufs)
@@ -799,12 +842,12 @@ def make_face_residual(stages, FA: FaceArrays, ph: Physics, bc_fns=None,
         # and their inviscid ghost states (bc.py; JAX reads them from the
         # same extrapolation, residual_soa.py:1042-1047)
         u_l = read(uf2, FA.slot_l, FA.shape_i)            # (F, *face plane)
-        u_r = read(uf2, FA.slot_r, FA.shape_i)
+        u_r = read(uf2, FA.slot_r, FA.shape_r)
         u_b = g0_b = None
         if FA.has_bdy:
             u_b = read(uf2, FA.slot_b, FA.shape_b).unbind(0)
             g0_b = bc_fns.ghost_state(u_b, norm_b, 0, ramp, fluc=fluc)
-        return ufs, u_l, u_r, u_b, g0_b
+        return ufs, uf2, u_l, u_r, u_b, g0_b
 
     def corrected_gradient(us, u_l, u_r, u_b, g0_b, ramp):
         """Step 3's gradient: the LDG common solution on every face and,
@@ -828,12 +871,15 @@ def make_face_residual(stages, FA: FaceArrays, ph: Physics, bc_fns=None,
         """The LDG-corrected physical gradient (d, U_t, F, E_t) of each
         block's state: what the viscous residual computes at step 3
         (residual.py:508-547 of the JAX package, make_gradient_fn)."""
-        _, u_l, u_r, u_b, g0_b = face_states(us, ramp)
+        _, _, u_l, u_r, u_b, g0_b = face_states(us, ramp)
         return [gr for _, gr in corrected_gradient(us, u_l, u_r, u_b, g0_b,
                                                    ramp)[2]]
 
-    def residual(us, fluc=None, ramp=None, out=None):
-        ufs, u_l, u_r, u_b, g0_b = face_states(us, ramp, fluc)
+    def stages_of(us, fluc=None, ramp=None, out=None):
+        ufs, uf2, u_l, u_r, u_b, g0_b = face_states(us, ramp, fluc)
+        if FA.sharded:
+            # the solution exchange (ref:src/mpi_inters.cpp:218-276)
+            u_r = with_partner(u_r, (yield uf2.index_select(1, FA.send)))
 
         # 3. viscous gradient path
         grs = extras = [None] * len(stages)
@@ -854,7 +900,12 @@ def make_face_residual(stages, FA: FaceArrays, ph: Physics, bc_fns=None,
                             FA.shape_b).unbind(0) for l in range(d)]
             qn2 = flat(qns)
             qn_l = read(qn2, FA.slot_l, FA.shape_i)
-            qn_r = read(qn2, FA.slot_r, FA.shape_i)
+            qn_r = read(qn2, FA.slot_r, FA.shape_r)
+            if FA.sharded:
+                # the qn exchange (ref:src/mpi_inters.cpp:278-338 ships
+                # the gradient; qn is F planes instead of d*F)
+                qn_r = with_partner(qn_r,
+                                    (yield qn2.index_select(1, FA.send)))
 
         # 4. volume transformed flux: the hand kernel, once per block
         tdisfs = [k.volume(u, gr, extra)
@@ -889,10 +940,30 @@ def make_face_residual(stages, FA: FaceArrays, ph: Physics, bc_fns=None,
                      for i, (k, u, gr, tdisf, o) in enumerate(
                          zip(stages, us, grs, tdisfs, outs)))
 
+    def residual(us, fluc=None, ramp=None, out=None):
+        try:
+            next(stages_of(us, fluc, ramp, out))
+        except StopIteration as done:
+            return done.value
+        raise RuntimeError("hifiles_tpu_torch residual: halo faces; run "
+                           "the shards through residual.stages")
+
+    residual.stages = stages_of
     residual.gradient = gradient
     residual.flux_point_rows = lambda us: flat(
         [k.to_fpts(u) for k, u in zip(stages, us)])
     return residual
+
+
+def block_wm_index(bc_fns):
+    """make_face_residual's ``wm_index`` for one block whose boundary
+    plane columns are its boundary faces (bc.make_bc_functions): every
+    column's element and solution point; None without wall models."""
+    if bc_fns is None or bc_fns.wm_tables is None:
+        return None
+    wm_ele, wm_upt, _ = bc_fns.wm_tables
+    return [(torch.arange(wm_ele.numel(), device=wm_ele.device), wm_ele,
+             wm_upt)]
 
 
 def make_residual_soa(block: ElementBlock, cfg: ResidualConfig, device,
@@ -908,14 +979,8 @@ def make_residual_soa(block: ElementBlock, cfg: ResidualConfig, device,
                                   "yet: " + ", ".join(missing))
     ph = Physics(cfg, block.ops.n_dims)
     FA = FaceArrays(SoaTables(block), device, dtype)
-    wm_index = None
-    if FA.has_bdy and bc_fns.wm_tables is not None:
-        # every boundary face's column: the face's element and point
-        wm_ele, wm_upt, _ = bc_fns.wm_tables
-        wm_index = [(torch.arange(wm_ele.numel(), device=wm_ele.device),
-                     wm_ele, wm_upt)]
     residual = make_face_residual([BlockStages(block, ph, device, dtype)],
-                                  FA, ph, bc_fns, wm_index)
+                                  FA, ph, bc_fns, block_wm_index(bc_fns))
 
     def residual_soa(u, fluc=None, ramp=None):
         return residual((u,), fluc, ramp)[0]

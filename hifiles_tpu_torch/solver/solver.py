@@ -127,6 +127,29 @@ def wall_points(bdy_slot, bdy_mask, bdy_bcid, pos_fpts, bc_flags, d):
     return pos_fpts[np.concatenate(slots)] if slots else np.empty((0, d))
 
 
+def cfl_dt(p: RunInput, u, h_ref, d: int):
+    """The per-element CFL time step (E,) of a (U, F, E) state with the
+    elements' reference lengths ``h_ref`` (E,) (solver.py:570-613 of the
+    JAX package; ref:src/eles.cpp:1267-1356): the inviscid limit from the
+    largest |v| + c and, viscous, the limit from max(4/3, gamma/Pr)
+    mu/rho, on the state's device in its dtype."""
+    CFL = p.CFL
+    u = u.unbind(1)
+    lam = max_wavespeed(u, p.gamma, d).amax(dim=0)
+    dt_ele = CFL * h_ref / lam / (2 * p.order + 1)
+    if p.viscous and p.equation == 0:
+        rho = u[0]
+        ke = 0.5 * sum(u[1 + m] ** 2 for m in range(d)) / rho
+        inte = (u[d + 1] - ke) / rho
+        mu = sutherland_mu(inte, p.gamma, p.mu_inf, p.rt_inf, p.c_sth,
+                           p.fix_vis)
+        lam_v = (max(4.0 / 3.0, p.gamma / p.prandtl)
+                 * mu / rho).amax(dim=0)
+        dt_ele = torch.minimum(
+            dt_ele, CFL * 0.25 * h_ref ** 2 / lam_v / (2 * p.order + 1))
+    return dt_ele
+
+
 def _per_block(x):
     """A tuple of per-block arrays: ``x`` itself if a tuple or list, else
     the one array of a single block."""
@@ -181,14 +204,17 @@ class BlockLoop:
         self.conn = build_faces(mesh, bc_flags, self.delta_cyclic)
         self.rcfg = residual_config(run_input, self.n_fields)
 
-    def _setup_inlet(self, block, plane_index, plane_shape, fpt_rows):
+    def _setup_inlet(self, block, plane_index, plane_shape, fpt_rows,
+                     slots=None):
         """The turbulent inlet, when LES runs and a boundary group has
         inlet_type > 0 (solver.py:168-178, multiblock.py:464-471 of the
         JAX package): ``block`` the element block or multiblock._TIFacade,
         ``plane_index`` and ``plane_shape`` the boundary planes of the
         face stage (turb_inlet.build_turb_inlet), ``fpt_rows(u)`` the
-        flux-point rows (F, S) of a state tensor.  The inlet draws from a
-        device generator seeded with 0 until ``set_inlet_draws``."""
+        flux-point rows (F, S) of a state, and ``slots`` their columns
+        that hold the inlet points (default: the block's slots).  The
+        inlet draws from a device generator seeded with 0 until
+        ``set_inlet_draws``."""
         self.turb_inlet = self._ti_state = self._fluc = None
         if not (self.p.LES and self._bc_fns is not None):
             return
@@ -196,7 +222,7 @@ class BlockLoop:
             self.p, block, lambda bcid: BCFunctions(
                 self.p, bcid, self.n_dims, self.rcfg, self.device,
                 self.dtype), plane_index, plane_shape, self.device,
-            self.dtype)
+            self.dtype, slots=slots)
         if self.turb_inlet is not None:
             self._ti_state = self.turb_inlet.init_state
             self._fpt_rows = fpt_rows
@@ -207,9 +233,11 @@ class BlockLoop:
         pos, sgn, _ = self._ti_state
         self._ti_state = (pos, sgn, draws)
 
-    def _setup_loop(self, blocks, sels, rhs):
-        p, dt_, dev = self.p, self.dtype, self.device
+    def _setup_loop(self, blocks, sels, rhs, devices=None):
+        """``devices``: each block's device (default: the solver's)."""
+        p, dt_ = self.p, self.dtype
         self._blocks, self._sels, self._rhs = blocks, sels, rhs
+        self._devs = devices or [self.device] * len(blocks)
         self._shapes = [(b.ops.n_upts, b.n_eles) for b in blocks]
         self.dof = sum(U * E for U, E in self._shapes)
         # SVV model: replace the solution with its filtered version once
@@ -218,7 +246,8 @@ class BlockLoop:
         if p.LES and p.SGS_model == 3:
             svv = [torch.as_tensor(build_les_filter(b.ops, p.filter_type,
                                                     p.filter_ratio),
-                                   dtype=dt_, device=dev) for b in blocks]
+                                   dtype=dt_, device=dev)
+                   for b, dev in zip(blocks, self._devs)]
 
             def pre_step(u):
                 out = self._alloc()
@@ -235,7 +264,8 @@ class BlockLoop:
         if p.shock_cap:
             self._caps = caps = [make_shock_capture_soa(
                 b.ops, p.s0, p.expf_fac, p.expf_order, p.expf_cutoff,
-                p.shock_det_field, self.n_dims, dev, dt_) for b in blocks]
+                p.shock_det_field, self.n_dims, dev, dt_)
+                for b, dev in zip(blocks, self._devs)]
 
             def post_stage(u):
                 for cap, v in zip(caps, self._views(u)):
@@ -250,7 +280,7 @@ class BlockLoop:
                 # the body force, an (F, 1) column (ref:src/eles.cpp:
                 # 1095-1247 adds the source to every stage's rhs)
                 for v in self._views(r):
-                    v.add_(self._bf)
+                    v.add_(self._bf.to(v.device))
             return r
         self._step = make_step_fn(stage_rhs, p.adv_type,
                                   post_stage=post_stage)
@@ -305,8 +335,8 @@ class BlockLoop:
             wdA = b.ops.fpt_weights[fs % Pf] * b.tdA_fpts[fs]
             W = np.zeros((b.ops.n_upts, b.n_eles))
             np.add.at(W.T, fs // Pf, wdA[:, None] * b.ops.opp_0[fs % Pf])
-            self._force.append((i, fs, wdA,
-                                torch.as_tensor(W, dtype=dt_, device=dev)))
+            self._force.append((i, fs, wdA, torch.as_tensor(
+                W, dtype=dt_, device=self._devs[i])))
         e1 = torch.zeros((nF, 1), dtype=dt_, device=dev)
         e1[1] = 1.0
         eE = torch.zeros((nF, 1), dtype=dt_, device=dev)
@@ -426,7 +456,7 @@ class BlockLoop:
         ref:src/solver.cpp:111-118); its fluctuations hold for the step's
         stages."""
         dt = self.compute_dt() if dt is None else dt
-        if getattr(dt, "ndim", 0) == 1:
+        if getattr(dt, "ndim", 0) >= 1:
             dt_rk, dt = self._local_dt(dt)
         else:
             dt_rk = dt = float(dt)
@@ -479,12 +509,14 @@ class BlockLoop:
         """Channel/hill bulk-momentum forcing (solver.py:427-445;
         ref:src/eles.cpp:5281-5484 evaluate_body_force): the (F, 1) source
         column from the mass flux through the -x inflow plane, and the
-        mass-flux memory updated, on the device."""
+        mass-flux memory updated, on the device; the blocks' plane
+        integrals are summed on the solver's device."""
         p = self.p
         views = self._views(u)
         acc = None
         for i, _, _, W in self._force:
-            part = (W[:, None] * views[i][:, :2]).sum(dim=(0, 2))
+            part = (W[:, None] * views[i][:, :2]).sum(dim=(0, 2)).to(
+                self.device)
             acc = part if acc is None else acc + part
         rho_int, mflux = acc
         ubulk = torch.where(rho_int == 0, 0.0, mflux / rho_int)
@@ -507,6 +539,7 @@ class BlockLoop:
         b = dt / t_rel
         for u, avg in zip(self._views(self.u_soa),
                           self._views(self.u_avg_soa, len(fields))):
+            on = lambda x: x.to(u.device)
             rho = u[:, 0]
             col = {"rho_average": lambda: rho,
                    "u_average": lambda: u[:, 1] / rho,
@@ -514,7 +547,8 @@ class BlockLoop:
                    "w_average": lambda: u[:, 3] / rho,
                    "e_average": lambda: u[:, d + 1] / rho}
             cur = torch.stack([col[f_]() for f_ in fields], dim=1)
-            avg.copy_(torch.where(t_rel <= dt, cur, a * avg + b * cur))
+            avg.copy_(torch.where(on(t_rel) <= dt, cur,
+                                  on(a) * avg + on(b) * cur))
 
     def inflow_massflux(self):
         """(mass_flux, ubulk, next body force) through the -x cyclic
@@ -582,8 +616,9 @@ class BlockLoop:
         return tot
 
     def _monitor_residual(self):
-        """Residual of the current state, (E, U, F) numpy per block."""
-        return self._state_out(self._to_numpy(self._rhs(self.u_soa, None)))
+        """Residual of the current state, a tuple of (E, U, F) numpy
+        arrays, one per block."""
+        return self._to_numpy(self._rhs(self.u_soa, None))
 
     def _check_cfl_dt(self):
         """The CFL time step reads |v| + c, which equation 1's one scalar
@@ -678,20 +713,7 @@ class Solver(BlockLoop):
         if p.dt_type == 0:
             return p.dt
         self._check_cfl_dt()
-        d, h_ref, CFL = self.n_dims, self._h_ref, p.CFL
-        u = self.u_soa.unbind(1)
-        lam = max_wavespeed(u, p.gamma, d).amax(dim=0)
-        dt_ele = CFL * h_ref / lam / (2 * p.order + 1)
-        if p.viscous and p.equation == 0:
-            rho = u[0]
-            ke = 0.5 * sum(u[1 + m] ** 2 for m in range(d)) / rho
-            inte = (u[d + 1] - ke) / rho
-            mu = sutherland_mu(inte, p.gamma, p.mu_inf, p.rt_inf, p.c_sth,
-                               p.fix_vis)
-            lam_v = (max(4.0 / 3.0, p.gamma / p.prandtl)
-                     * mu / rho).amax(dim=0)
-            dt_ele = torch.minimum(
-                dt_ele, CFL * 0.25 * h_ref ** 2 / lam_v / (2 * p.order + 1))
+        dt_ele = cfl_dt(p, self.u_soa, self._h_ref, self.n_dims)
         return dt_ele if p.dt_type == 2 else dt_ele.min()
 
     def _local_dt(self, dt):

@@ -43,11 +43,12 @@ N_STAGES = {0: 1, 1: 4, 2: 4, 3: 5, 4: 14}
 
 
 def _axpy(y, x, a):
-    """y += a * x in place: a Python float as add_'s alpha, a tensor (a
-    local dt, (1, 1, E), broadcast along the elements) through addcmul_."""
-    if isinstance(a, torch.Tensor):
-        return y.addcmul_(x, a)
-    return y.add_(x, alpha=a)
+    """y += a * x in place: a Python float as add_'s alpha, anything else
+    (a local dt, (1, 1, E), broadcast along the elements) through
+    addcmul_."""
+    if isinstance(a, (int, float)):
+        return y.add_(x, alpha=a)
+    return y.addcmul_(x, a)
 
 
 def make_step_fn(residual_fn, adv_type: int, post_stage=None):
@@ -63,7 +64,10 @@ def make_step_fn(residual_fn, adv_type: int, post_stage=None):
     must update ``u`` in place.  Coefficients stay Python floats, so an f32
     state stays f32.  ``dt`` is a float, or a tensor in the state's dtype
     that broadcasts against it (the per-element local dt as a (1, 1, E)
-    plane, as the JAX chunk reshapes it, solver.py:302-303)."""
+    plane, as the JAX chunk reshapes it, solver.py:302-303).  ``u`` and
+    ``reg`` may be any object with these in-place tensor methods, e.g. the
+    per-shard state of an element-sharded run (soa_sharding.ShardState,
+    which always comes with its register)."""
     ps = post_stage if post_stage is not None else (lambda u: u)
 
     if adv_type == 0:

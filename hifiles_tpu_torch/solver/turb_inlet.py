@@ -383,15 +383,16 @@ class TurbInlet:
 
 
 def build_turb_inlet(run_input, block, bc_fns_of, plane_index, plane_shape,
-                     device, dtype, seed: int = 0):
+                     device, dtype, seed: int = 0, slots=None):
     """The inlet over the full inlet plane (turb_inlet.py:306-336 of the
     JAX package), or None without one.  ``block`` is an element block or a
     facade with the same tables (multiblock._TIFacade); ``bc_fns_of(bcid)``
     builds the boundary functions of plane columns with the groups
     ``bcid``; ``plane_index`` (Fb, nfp) gives each boundary face point's
     flat index in the residual's boundary planes, shaped ``plane_shape``
-    (-1 at a padded point).  It draws from a DeviceDraws seeded with
-    ``seed``."""
+    (-1 at a padded point); ``slots`` (Fin, nfp) the columns of the rows
+    that ``update`` reads holding the inlet points (default: their slots
+    in ``block``).  It draws from a DeviceDraws seeded with ``seed``."""
     c = inlet_host_setup(run_input, block, seed)
     if c is None:
         return None
@@ -401,5 +402,6 @@ def build_turb_inlet(run_input, block, bc_fns_of, plane_index, plane_shape,
     draws = DeviceDraws(c.seed, device, dtype)
     idx = plane_index[c.in_faces].reshape(-1)
     valid = np.nonzero(idx >= 0)[0]
-    return TurbInlet(c, core, c.slots, idx[valid], valid, plane_shape,
+    return TurbInlet(c, core, c.slots if slots is None else slots,
+                     idx[valid], valid, plane_shape,
                      int(np.prod(plane_shape)), device, dtype, draws)

@@ -2,7 +2,8 @@
 """Where the time goes in one of the port's bench cases on one GPU.
 
   python3 scripts/profile_torch_tgv.py [--config NAME] [--steps N] [--out DIR]
-  python3 scripts/profile_torch_tgv.py --config NAME --count-ops
+                                       [--shards N]
+  python3 scripts/profile_torch_tgv.py --config NAME --count-ops [--shards N]
 
 Runs a case of bench.py through hifiles_tpu_torch in f32: --config plain,
 smag, overint, rans or shock (TGV p=4 on 16^3 periodic hexes; default
@@ -13,7 +14,9 @@ quads), tet (the TGV deck, p=4, on 12^3 periodic Kuhn tets), mixed
 (bench.run_mixed3d: the wall-modelled prism/tet LES channel, p=2), sem
 (the WALE LES duct with a 1000-eddy SEM inlet, 16^3 hexes, p=4, its draws
 from the card's generator) or advdiff (the 3-D sine wave, equation 1, 16^3
-hexes, p=4).
+hexes, p=4).  With --shards N the case runs element-sharded
+(parallel.ShardedSolver, or ShardedMixedSolver for the mixed meshes) in N
+shards on the one card, or on the CPU with --count-ops.
 
 With --count-ops it runs one step on the CPU (no GPU needed), on a small
 mesh of the same kind (the count does not depend on the element count),
@@ -169,6 +172,7 @@ def main():
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--out", default=os.path.join(ROOT, "profile_out"))
     ap.add_argument("--count-ops", action="store_true")
+    ap.add_argument("--shards", type=int, default=0)
     args = ap.parse_args()
 
     import torch
@@ -176,24 +180,25 @@ def main():
         raise SystemExit("profile_torch_tgv: CUDA is not available")
     sys.path.insert(0, ROOT)
     from chip_smoke import (INLET_SLICES, MIXED_SLICES, NEW_SLICES, SLICES,
-                            channel_input, make_solver, slice_case)
+                            make_sharded, make_solver, slice_case)
     import hifiles_tpu_torch as ht
     from torch.profiler import ProfilerActivity, profile
 
     names = SLICES + ["channel"] + NEW_SLICES + MIXED_SLICES + INLET_SLICES
     if args.config not in names:
         raise SystemExit(f"profile_torch_tgv: --config one of {names}")
-    if args.config == "channel":
-        p, mesh = channel_input(order=4), ht.channel_hex_mesh(16, 16, 16)
-    else:
-        p, mesh = slice_case(args.config)
+    p, mesh = slice_case(args.config)
     if args.count_ops:
         mesh = SMALL_MESHES.get(args.config,
                                 lambda m: m.periodic_hex_mesh(2, 2, 2))(ht)
-    s = make_solver(p, mesh, args.config,
-                    "cpu" if args.count_ops else "cuda", torch.float32)
+    device = "cpu" if args.count_ops else "cuda"
+    if args.shards:
+        s = make_sharded(p, mesh, args.shards, device, torch.float32)
+    else:
+        s = make_solver(p, mesh, args.config, device, torch.float32)
+    name = args.config + (f" x{args.shards}" if args.shards else "")
     if args.count_ops:
-        print(f"{args.config}: {count_ops(s, p.dt):.1f} launches per RK "
+        print(f"{name}: {count_ops(s, p.dt):.1f} launches per RK "
               "stage (aten ops dispatched on the CPU)")
         return
     card = subprocess.run(
@@ -201,9 +206,10 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
     print(card)
-    if s._bc_fns is not None:
-        annotate(s._bc_fns, ("ghost_state", "ldg_solution", "inv_common_flux",
-                             "visc_common_flux"), BOUNDARY)
+    for fns in getattr(s, "shard_bc_fns", [s._bc_fns]):
+        if fns is not None:
+            annotate(fns, ("ghost_state", "ldg_solution", "inv_common_flux",
+                           "visc_common_flux"), BOUNDARY)
     if s.turb_inlet is not None:
         annotate(s.turb_inlet, ("update",), INLET)
     s.run(2, dt=p.dt)
@@ -224,7 +230,7 @@ def main():
                  if ev.device_type == torch.autograd.DeviceType.CUDA
                  and ev.key != BOUNDARY)
     stages = args.steps * s.n_stages
-    print(f"{args.config}: traced {args.steps} steps ({stages} RK stages): "
+    print(f"{name}: traced {args.steps} steps ({stages} RK stages): "
           f"wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
           f"({100 * busy / wall_us:.1f}% busy, "
           f"{100 * (1 - busy / wall_us):.1f}% idle)")
@@ -247,14 +253,15 @@ def main():
         print(f"  {key:30s} {us / stages:9.1f} us/stage "
               f"{n / stages:6.1f} calls/stage")
     os.makedirs(args.out, exist_ok=True)
-    top = os.path.join(args.out, f"profile_{args.config}_kernels.txt")
+    tag = args.config + (f"_x{args.shards}" if args.shards else "")
+    top = os.path.join(args.out, f"profile_{tag}_kernels.txt")
     with open(top, "w") as f:
         f.write(f"{card}\n")
         for key, (dev_us, count) in sorted(rows.items(),
                                            key=lambda kv: -kv[1][0]):
             f.write(f"{dev_us:12.1f} us {count:6d}x  {key}\n")
     prof.export_chrome_trace(os.path.join(args.out,
-                                          f"profile_{args.config}_trace.json"))
+                                          f"profile_{tag}_trace.json"))
     print(f"kernel table: {top}")
 
 

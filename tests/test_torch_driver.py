@@ -5,7 +5,9 @@ directory, at f64 on the CPU: the printed monitor, force and final-error
 rows at 1e-10 (or one unit of their last printed digit), history.plt less
 its wall-clock column, error.dat, and the files written; on a TGV hex
 Gambit deck, the mixed tri+quad Gmsh deck of tests/test_driver_mixed.py,
-the Couette deck, a local-dt deck and a restart."""
+the Couette deck, a local-dt deck and a restart.  Then the counterparts of
+tests/test_cli_multidevice.py: ``--devices N --device cpu`` runs against
+the port's single-device run, and probes on a ShardedSolver."""
 
 import os
 import re
@@ -30,6 +32,7 @@ from hifiles_tpu_torch.convert import run_input_from
 sys.path.insert(0, os.path.dirname(__file__))
 sys.path.insert(0, os.path.dirname(os.path.dirname(__file__)))
 from chip_smoke import tgv_deck  # noqa: E402
+from test_cli_multidevice import _short_deck  # noqa: E402
 from test_driver_mixed import write_gmsh22  # noqa: E402
 
 torch.set_num_threads(1)
@@ -143,9 +146,11 @@ def table(path, drop_last=False):
         [line for line in lines if not line[:1].isdigit()]
 
 
-def assert_outputs_match(tmp_path, outs):
-    a, b = tmp_path / "jax", tmp_path / "port"
-    ra, rb = rows(outs["jax"]), rows(outs["port"])
+def assert_outputs_match(tmp_path, outs, names=("jax", "port")):
+    """The runs ``names`` (their stdouts in ``outs``, their files in
+    tmp_path/<name>) agree."""
+    a, b = (tmp_path / name for name in names)
+    ra, rb = (rows(outs[name]) for name in names)
     assert ra and len(ra) == len(rb)
     for x, y in zip(ra, rb):
         assert_close(x, y)
@@ -223,10 +228,106 @@ def test_ascii_restart_continues_exactly(tmp_path, capsys):
     assert ra[-1] == rb[-1]
 
 
-def test_devices_option_raises(tmp_path):
+def test_devices_option_raises(tmp_path, monkeypatch):
+    """--devices never moves a run to the CPU unasked: without CUDA it
+    raises unless --device cpu is given."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     deck = hex_case(tmp_path)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        port_driver.main([str(deck), "--devices", "2", "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_driver.main([str(deck), "--devices", "2", "--outdir",
+                          str(tmp_path / "out")])
+
+
+def test_devices_matches_single_device(tmp_path, capsys):
+    """tests/test_cli_multidevice.py:44-72 on the port: the vortex-parity
+    deck (16^2 quads, p=3, 20 steps) as 4 shards on the CPU against the
+    single-device run: error.dat at rtol 1e-9, the history's residual
+    columns at rtol 1e-8, the HDF5 restart's datasets at 1e-11."""
+    import h5py
+    deck = _short_deck(tmp_path, "deck")
+    out1, out4 = str(tmp_path / "run1"), str(tmp_path / "run4")
+    argv = [deck, "--f64", "--device", "cpu", "--outdir"]
+    assert port_driver.main([*argv, out1]) == 0
+    assert port_driver.main([*argv, out4, "--devices", "4"]) == 0
+    assert "shards: 4 on cpu x4" in capsys.readouterr().out
+    e1 = np.loadtxt(os.path.join(out1, "error.dat"))
+    e4 = np.loadtxt(os.path.join(out4, "error.dat"))
+    np.testing.assert_allclose(e4, e1, rtol=1e-9, atol=1e-14)
+    h1 = np.loadtxt(os.path.join(out1, "history.plt"), skiprows=2)
+    h4 = np.loadtxt(os.path.join(out4, "history.plt"), skiprows=2)
+    assert h1.shape == h4.shape == (2, 7)
+    np.testing.assert_allclose(h4[:, 1:5], h1[:, 1:5], rtol=1e-8,
+                               atol=1e-13)
+    with h5py.File(os.path.join(out1, "Rest_000000020.h5"), "r") as f1, \
+            h5py.File(os.path.join(out4, "Rest_000000020.h5"), "r") as f4:
+        floats = [k for k in f1 if isinstance(f1[k], h5py.Dataset)
+                  and f1[k].dtype.kind == "f"]
+        assert floats
+        for k in floats:
+            np.testing.assert_allclose(np.asarray(f4[k]), np.asarray(f1[k]),
+                                       rtol=1e-11, atol=1e-14)
+
+
+def test_devices_restart_round_trip(tmp_path, capsys):
+    """tests/test_cli_multidevice.py:102-113 on the port: a --devices run
+    restarted from its own dump scatters the state back onto the shards
+    and continues as the single-device restart does."""
+    deck = _short_deck(tmp_path, "deck_a")
+    deck2 = _short_deck(tmp_path, "deck_b", n_steps=10,
+                        extra=("restart_flag 1", "restart_iter 20",
+                               "n_restart_files 1"))
+    for name, extra in (("one", []), ("four", ["--devices", "4"])):
+        out = str(tmp_path / name)
+        for d in (deck, deck2):
+            assert port_driver.main([d, "--f64", "--device", "cpu",
+                                     "--outdir", out, *extra]) == 0
+    assert "restarted from" in capsys.readouterr().out
+    e1 = np.loadtxt(str(tmp_path / "one" / "error.dat"))
+    e4 = np.loadtxt(str(tmp_path / "four" / "error.dat"))
+    assert e4.shape == (2, 4) and np.isfinite(e4).all()
+    np.testing.assert_allclose(e4, e1, rtol=1e-9, atol=1e-14)
+
+
+def test_devices_mixed_deck_matches_single_device(tmp_path, capsys):
+    """The tri+quad Gmsh deck as 3 shards (ShardedMixedSolver, its dt
+    from the twin): the same monitor rows and files as the single-device
+    run."""
+    deck = mixed_case(tmp_path)
+    argv = [str(deck), "--f64", "--device", "cpu", "--outdir"]
+    assert port_driver.main([*argv, str(tmp_path / "one")]) == 0
+    one = capsys.readouterr().out
+    assert port_driver.main([*argv, str(tmp_path / "three"),
+                             "--devices", "3"]) == 0
+    three = capsys.readouterr().out
+    assert "3 devices" in three
+    assert_outputs_match(tmp_path, {"one": one, "three": three},
+                         names=("one", "three"))
+
+
+def test_sharded_probe_owner_slot_sampling():
+    """tests/test_cli_multidevice.py:75-99 on the port: a ProbeSet on a
+    ShardedSolver samples only the probes' elements from the padded
+    (n, El, U, F) state and matches the one on a Solver."""
+    from hifiles_tpu_torch import Solver
+    from hifiles_tpu_torch.convert import mesh_from
+    from hifiles_tpu_torch.io.probes import ProbeSet
+    from hifiles_tpu_torch.parallel import ShardedSolver, select_devices
+    from test_io_extras import vortex_input
+    from hifiles_tpu.mesh.generate import periodic_quad_mesh
+
+    mesh = mesh_from(periodic_quad_mesh(8, 8, -10, 10, -10, 10))
+    p = run_input_from(vortex_input())
+    s1 = Solver(p, mesh, device="cpu")
+    ss = ShardedSolver(run_input_from(vortex_input()), mesh,
+                       devices=select_devices(8, "cpu"))
+    s1.run(3, dt=p.dt)
+    ss.run(3, dt=p.dt)
+    pts = np.array([[0.0, 0.0], [3.3, -2.1], [-7.7, 8.8]])
+    ps1 = ProbeSet(s1, pts, ["rho", "u", "pressure"])
+    ps8 = ProbeSet(ss, pts, ["rho", "u", "pressure"])
+    assert ps8._owner_slots is not None
+    np.testing.assert_allclose(ps8.sample(), ps1.sample(), rtol=1e-11,
+                               atol=1e-14)
 
 
 def test_patched_mixed_deck_raises(tmp_path):

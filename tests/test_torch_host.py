@@ -156,6 +156,20 @@ s = ht.MixedSolver(adv_diff_input(order=2, dims=2), ht.periodic_mixed_mesh_2d(
 s.run(1, dt=1e-3)
 assert np.isfinite(s.residual_norm(1)).all()
 assert "hifiles_tpu_torch.solver.turb_inlet" in sys.modules
+# element-sharded runs: ShardedSolver (TGV, a SEM channel) and
+# ShardedMixedSolver (tri+quad box) on CPU shards
+from hifiles_tpu_torch.parallel import (ShardedMixedSolver, ShardedSolver,
+                                        select_devices)
+for p, mesh, n in ((tgv_input(order=2), ht.periodic_hex_mesh(3, 3, 2), 3),
+                   (les_input(2), ht.channel_quad_mesh(4, 2, 0.0, 2.0, 0.0,
+                                                       1.0), 2)):
+    s = ShardedSolver(p, mesh, devices=select_devices(n, "cpu"))
+    s.run(1, dt=p.dt if p.dt_type == 0 else 1e-5)
+    assert np.isfinite(s.norm_residual(1)).all() and s.u.shape[0] == n
+s = ShardedMixedSolver(vortex_input(order=2), ht.periodic_mixed_mesh_2d(
+    3, 3, -10, 10, -10, 10), devices=select_devices(2, "cpu"))
+s.run(1, dt=1e-4)
+assert np.isfinite(s.norm_residual(1)).all()
 # python -m hifiles_tpu_torch on a tiny deck: 2 steps of the TGV on 3^3
 # hexes, p=1, with plots, history and an ASCII restart
 import os, runpy, tempfile
@@ -166,18 +180,19 @@ write_gambit(ht.periodic_hex_mesh(3, 3, 3), os.path.join(d, "box.neu"))
 with open(os.path.join(d, "run.deck"), "w") as f:
     f.write(tgv_deck("box.neu", order=1, n_steps=2, monitor_res_freq=1,
                      plot_freq=2, restart_dump_freq=2))
-sys.argv = ["hifiles_tpu_torch", os.path.join(d, "run.deck"), "--device",
-            "cpu", "--outdir", os.path.join(d, "out")]
-try:
-    runpy.run_module("hifiles_tpu_torch", run_name="__main__")
-except SystemExit as e:
-    assert e.code == 0, e.code
-assert sorted(os.listdir(os.path.join(d, "out"))) == [
-    "Mesh_000000002", "Mesh_000000002.pvtu", "Rest_000000002_p0000.dat",
-    "history.plt"], os.listdir(os.path.join(d, "out"))
+for out, extra in (("out", []), ("out2", ["--devices", "2"])):
+    sys.argv = ["hifiles_tpu_torch", os.path.join(d, "run.deck"),
+                "--device", "cpu", "--outdir", os.path.join(d, out), *extra]
+    try:
+        runpy.run_module("hifiles_tpu_torch", run_name="__main__")
+    except SystemExit as e:
+        assert e.code == 0, e.code
+    assert sorted(os.listdir(os.path.join(d, out))) == [
+        "Mesh_000000002", "Mesh_000000002.pvtu", "Rest_000000002_p0000.dat",
+        "history.plt"], os.listdir(os.path.join(d, out))
 assert {"hifiles_tpu_torch.driver", "hifiles_tpu_torch.io.vtu",
-        "hifiles_tpu_torch.io.history",
-        "hifiles_tpu_torch.io.restart"} <= set(sys.modules)
+        "hifiles_tpu_torch.io.history", "hifiles_tpu_torch.io.restart",
+        "hifiles_tpu_torch.parallel.soa_sharding"} <= set(sys.modules)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "hifiles_tpu"))
 assert not loaded, loaded
@@ -192,8 +207,10 @@ def test_port_runs_with_jax_blocked():
     box, a wall-modelled tri+quad channel, a wall-modelled prism/tet
     channel and a prism box; SEM and white-noise inlets on quad and hex
     Solvers and a tri+quad MixedSolver; advection-diffusion on quads, hexes
-    and tri+quads; and runs ``python -m hifiles_tpu_torch`` on a tiny deck
-    on the CPU, with every import of JAX and of the JAX package
+    and tri+quads; element-sharded runs (a ShardedSolver TGV and SEM
+    channel, a ShardedMixedSolver tri+quad box); and runs ``python -m
+    hifiles_tpu_torch`` on a tiny deck on the CPU, single-device and with
+    ``--devices 2``, with every import of JAX and of the JAX package
     hifiles_tpu refused."""
     env = dict(os.environ, OMP_NUM_THREADS="1")
     res = subprocess.run([sys.executable, "-c", _NO_JAX, ROOT],
