@@ -4,7 +4,10 @@
   python3 chip_smoke.py
 
 Phases, each of which raises on failure (the script then exits non-zero and
-prints no result line):
+prints no result line).  Every run on the card goes through the solvers'
+captured step (BlockLoop.run: one step captured as a CUDA graph and
+replayed; its run path is checked), unless it is the eager run a
+comparison asks for (``graph=False``):
   1. device  - require CUDA; print nvidia-smi's name and power limit;
   2. build   - compile the hand-written kernels from hifiles_tpu_torch/csrc
                and print ptxas's registers and spills per instantiation;
@@ -46,7 +49,13 @@ prints no result line):
                curved 20-node hex and 15-node prism boxes and the
                wall-modelled prism/tet channel against its L1 residual
                rows;
-  6. slices  - the `plain`, `smag`, `overint`, `rans` and `shock` cases of
+  6. slices  - (each cell with its graph phase: 10 captured steps against
+               10 eager steps from one snapshot, gated at 1e-6 * max|u|,
+               device kernels of a replayed step against an eager step's
+               within 1%, the volume kernel among them as often, the
+               capture's time and the memory the graph holds; the rates
+               captured and eager, interleaved)
+               the `plain`, `smag`, `overint`, `rans` and `shock` cases of
                bench.py (TGV p=4 on 16^3 periodic hexes, f32) and its
                `channel` case (forced plane-channel LES on 16^3 hexes, p=4,
                f32, bench.run_channel) for 10 + 10 steps each, gated on
@@ -65,15 +74,16 @@ prints no result line):
                default device draws, against a laminar-inlet twin, with
                its inlet's mass flux and the inlet update's device time;
                the kernels' launch counts read around each run; the rates
-               of `quad`, `tet`, `mixed`, `mixed3d`, `sem` and `advdiff`
-               beside `plain` from 8 interleaved 10-step repeats, and
-               their launches per RK stage; then the sharded cells, all
+               of every one of these cells, captured and eager, from 8
+               interleaved 10-step repeats, and their device kernels per
+               RK stage; then the sharded cells, all
                shards on the card: `plain` in 4 shards, `channel` in 3
                (1,366/1,365/1,365 elements) and `mixed3d` in 4 through
                ShardedMixedSolver, 10 + 10 steps gated on bench.GOLDENS,
                the volume kernel launched on every shard's blocks at
-               every stage, their rates beside `plain` from 4 interleaved
-               repeats and their launches per RK stage;
+               every stage, their rates, captured and eager, beside
+               `plain` from 4 interleaved repeats and their device kernels
+               per RK stage;
   7. driver  - `python3 -m hifiles_tpu_torch <deck>` as a subprocess on
                the `plain` case written as a deck and a Gambit file (TGV
                p=4 on 16^3 hexes, f32, 20 steps): its iter-20 row gated on
@@ -92,7 +102,9 @@ prints no result line):
                Couette case against the reference binary's error rows,
                and, with h5py, an HDF5 restart round trip and a CGNS
                write;
-  8. checks  - no module of JAX or of the JAX package was imported.
+  8. checks  - no module of JAX or of the JAX package was imported; the
+               graph phase's summary, and the card's peak reserved memory
+               after each phase.
 The last two lines are the kernel record (each variant at one shape, its
 launches summed over the paths that launch it at that shape, split in
 ``launches_by_path``: the shards of the sharded cells are variants of
@@ -205,6 +217,8 @@ INLET_SLICES = ["sem", "advdiff"]
 # the `sem` slice's state before its gated run, for the run with the
 # default device draws
 IC_SNAPSHOTS = {}
+# the graph phase's record of each cell (graph_vs_eager)
+GRAPHS = {}
 # bench.py's mixed-mesh cases, through MixedSolver, gated on bench.GOLDENS
 MIXED_SLICES = ["mixed", "mixed3d"]
 N_RATE_REPEATS = 8
@@ -470,11 +484,11 @@ def quad_wall_input(rans=False, wall_model=0):
     return p
 
 
-def quad_wall_mesh(x1=4.0):
-    """channel_quad_mesh(8, 4) on [0, x1] x [0, 1]: cyclic in x, walls at
+def quad_wall_mesh(x1=4.0, nx=8, ny=4):
+    """channel_quad_mesh(nx, ny) on [0, x1] x [0, 1]: cyclic in x, walls at
     y = 0 and y = 1 (the groups of tests/test_residual_soa.py:154-157)."""
     from hifiles_tpu_torch import channel_quad_mesh
-    mesh = channel_quad_mesh(8, 4, 0.0, x1, 0.0, 1.0, bc_x="Cyc",
+    mesh = channel_quad_mesh(nx, ny, 0.0, x1, 0.0, 1.0, bc_x="Cyc",
                              bc_X="Cyc", bc_y="Wall")
     mesh.bc_id[mesh.bc_id == 1] = 0
     mesh.bc_names = ["Cyc", "unused", "Wall"]
@@ -1074,6 +1088,8 @@ def phase_small(counts):
         gpu.run(2, dt=p.dt)
         torch.cuda.synchronize()
         run_counts = dict(volume_tdisf.by_variant)
+        if not gpu.run_path.endswith("captured"):
+            raise AssertionError(f"{name}: run path {gpu.run_path!r}")
         cpu.run(2, dt=p.dt)
         ug, uc = flat(gpu.u), flat(cpu.u)
         err = np.abs(ug - uc).max() / np.abs(uc).max()
@@ -1237,8 +1253,7 @@ def phase_slice(card, name, counts):
     volume_tdisf.launches = 0
     volume_tdisf.by_variant.clear()
     volume_tdisf.by_shape.clear()
-    s.run(10, dt=p.dt)
-    torch.cuda.synchronize()
+    held = captured_run(s, 10, p.dt)
     t0 = time.perf_counter()
     s.run(10, dt=p.dt)
     torch.cuda.synchronize()
@@ -1247,6 +1262,8 @@ def phase_slice(card, name, counts):
     launches = volume_tdisf.launches
     counts[name] = dict(volume_tdisf.by_variant)
     counts[name + ":blocks"] = dict(volume_tdisf.by_shape)
+    log(f"slice {name}: run path {s.run_path!r}, capture "
+        f"{s.capture_seconds:.3f} s, the graph holds {held / 2**20:.1f} MiB")
 
     gold, rtol = slice_gate(name)
     rel = np.abs(row - gold) / np.abs(gold)
@@ -1291,6 +1308,9 @@ def phase_slice(card, name, counts):
             raise AssertionError(f"volume_tdisf[wale] launched "
                                  f"{counts[name].get(wale, 0)} times on the "
                                  f"sem slice, expected >= {need}")
+    else:
+        # `sem`'s replayed draws end at step 20: phase_sem holds its graph
+        GRAPHS[name] = graph_vs_eager(card, name, s, p.dt)
     return s, p
 
 
@@ -1326,6 +1346,7 @@ def phase_sem(card, s, p):
             and mf < 1e-6 * scale):
         raise AssertionError("sem with the device draws failed its checks")
     del lam
+    GRAPHS["sem"] = graph_vs_eager(card, "sem", s, p.dt)
     ti, state = s.turb_inlet, s._ti_state
     ms = cuda_ms(lambda: ti.update(state, s._fpt_rows(s.u_soa), p.dt))
     rows = cuda_ms(lambda: s._fpt_rows(s.u_soa))
@@ -1341,7 +1362,8 @@ def phase_channel(card, counts):
     10 + 10 steps), gated row by row on bench.GOLDENS["channel"]; records
     its launch counts by variant in ``counts``; then, ungated, 40 steps
     more in 10-step chunks, logging whether the state stays finite (the
-    sharded `channel`'s repeats restart from the IC for this reason)."""
+    sharded `channel`'s repeats restart from the IC for this reason).
+    Returns the solver, back at its gated state, and its deck."""
     import numpy as np
     import torch
     import bench
@@ -1358,8 +1380,7 @@ def phase_channel(card, counts):
 
     volume_tdisf.launches = 0
     volume_tdisf.by_variant.clear()
-    s.run(10, dt=p.dt)
-    torch.cuda.synchronize()
+    held = captured_run(s, 10, p.dt)
     t0 = time.perf_counter()
     s.run(10, dt=p.dt)
     torch.cuda.synchronize()
@@ -1367,6 +1388,8 @@ def phase_channel(card, counts):
     row = s.residual_norm(1)
     launches = volume_tdisf.launches
     counts["channel"] = dict(volume_tdisf.by_variant)
+    log(f"slice channel: run path {s.run_path!r}, capture "
+        f"{s.capture_seconds:.3f} s, the graph holds {held / 2**20:.1f} MiB")
 
     rate = s.dof * s.n_stages * 10 / wall
     gold = np.asarray(bench.GOLDENS["channel"])
@@ -1391,6 +1414,8 @@ def phase_channel(card, counts):
         raise AssertionError(f"volume_tdisf[smagorinsky] launched {smag} "
                              "times on the channel slice, expected >= "
                              f"{2 * 10 * s.n_stages}")
+    GRAPHS["channel"] = graph_vs_eager(card, "channel", s, p.dt)
+    gated = s.snapshot()
     for step in range(30, 61, 10):
         s.run(10, dt=p.dt)
         u = s.u_soa
@@ -1400,55 +1425,150 @@ def phase_channel(card, counts):
             f"{s.inflow_massflux()[2]:.6e} (ungated)")
         if not finite:
             break
-    return rate
+    s.restore(gated)
+    return s, p
 
 
-def launches_per_stage(s, dt):
-    """Device kernels (and memsets and copies) per RK stage over one traced
-    step, counted by torch.profiler."""
+def step_kernels(s, dt, graph=True):
+    """(device kernels, memsets and copies; volume-kernel launches) of one
+    traced step, counted by torch.profiler: a replay of the captured step
+    (its capture first, untraced, if it has none), or with graph=False an
+    eager step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    if graph and s._graph is None:
+        s.run(1, dt=dt)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        s.run(1, dt=dt)
+        s.run(1, dt=dt, graph=graph)
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    return sum(1 for ev in prof.events()
-               if ev.device_type == cuda) / s.n_stages
+    names = [ev.name for ev in prof.events() if ev.device_type == cuda]
+    return len(names), sum(1 for n in names if "volume_tdisf" in n)
 
 
-def phase_rates(card, runs, repeats=N_RATE_REPEATS, fresh=()):
-    """The rate of each of ``runs`` (name -> (solver, deck)): median and
-    quartiles of ``repeats`` 10-step repeats, the slices taking turns so
-    that both see the same host; then launches per RK stage.  The runs
-    named in ``fresh`` go back to their state at the call before every
-    repeat (a deck that stays finite only for its gated steps).  Returns
-    the medians by name."""
+def state_vector(s):
+    """A solver's state, and its running averages, as one tensor on the
+    card."""
+    import torch
+    parts = []
+    for x in (s.u_soa, s.u_avg_soa):
+        if x is not None:
+            parts += [q.reshape(-1) for q in getattr(x, "parts", [x])]
+    return torch.cat(parts)
+
+
+def graph_vs_eager(card, name, s, dt, n=10):
+    """The graph phase for one cell: ``n`` captured steps held against
+    ``n`` eager steps (``run(..., graph=False)``) from the same snapshot
+    (bit for bit expected; gate 1e-6 * max|u| in f32, 1e-12 in f64, the
+    running averages included); the device kernels of a replayed step
+    against those of an eager step (within 1%), the volume kernel among
+    them as often; the capture's time and what the graph holds.  The
+    solver returns to its state at the call.  Returns the record."""
+    import torch
+    snap = s.snapshot()
+    s.run(n, dt=dt, graph=False)
+    eager = state_vector(s)
+    s.restore(snap)
+    s.run(n, dt=dt)
+    captured = state_vector(s)
+    path = s.run_path
+    diff = float((captured - eager).abs().max())
+    scale = float(eager.abs().max())
+    exact = bool(torch.equal(captured, eager))
+    for _ in range(2):
+        k_e, k1_e = step_kernels(s, dt, graph=False)
+        k_g, k1_g = step_kernels(s, dt, graph=True)
+        if abs(k_g - k_e) <= 0.01 * k_e and k1_g == k1_e:
+            break
+        # the profiler has been seen to drop some of an eager step's
+        # records on the H100; a second trace settles it
+        log(f"graph {name}: traced kernels {k_g} replayed, {k_e} eager; "
+            "traced again")
+    s.restore(snap)
+    tol = (1e-6 if s.dtype == torch.float32 else 1e-12) * scale
+    rec = dict(diff=diff, scale=scale, exact=exact, eager=k_e / s.n_stages,
+               replay=k_g / s.n_stages, k1_eager=k1_e, k1_replay=k1_g,
+               capture_s=s.capture_seconds)
+    log(f"graph {name}: {n} captured steps vs {n} eager from one snapshot: "
+        f"max |diff| {diff:.3e} of max |u| {scale:.6e} (gate {tol:.3e}), "
+        f"bit for bit {exact}; device kernels per RK stage replayed "
+        f"{k_g / s.n_stages:.1f}, eager {k_e / s.n_stages:.1f} (gate 1%); "
+        f"volume kernel per step replayed {k1_g}, eager {k1_e}; capture "
+        f"{s.capture_seconds:.3f} s; run path {path!r}; on [{card}]")
+    if not (torch.isfinite(captured).all() and diff <= tol
+            and abs(k_g - k_e) <= 0.01 * k_e and k1_g == k1_e
+            and path.endswith("captured")):
+        raise AssertionError(f"graph {name}: the captured step differs from "
+                             "the eager step")
+    return rec
+
+
+def captured_run(s, n, dt):
+    """``s.run(n, dt)`` on the captured path, synchronised; returns the
+    memory the run left reserved on the card once the allocator's cache
+    is emptied: a first captured run's is the graph's pool."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    s.run(n, dt=dt)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    if not s.run_path.endswith("captured"):
+        raise AssertionError(f"run path {s.run_path!r} on the card")
+    return torch.cuda.memory_reserved() - before
+
+
+def log_memory(phase):
+    """The card's peak reserved memory so far, after a phase."""
+    import torch
+    log(f"memory after {phase}: max reserved "
+        f"{torch.cuda.max_memory_reserved() / 2**30:.3f} GiB, reserved now "
+        f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB")
+
+
+def phase_rates(card, runs, repeats=N_RATE_REPEATS):
+    """The rate of each of ``runs`` (name -> (solver, deck)), captured and
+    eager: median and quartiles of ``repeats`` 10-step repeats of each,
+    the cells taking turns and each cell's captured and eager runs
+    alternating which goes first, so that all see the same host; every
+    repeat starts from the cell's state at the call (a deck may stay
+    finite only for its gated steps, as the `channel`'s).  Then device
+    kernels per RK stage of a replayed and of an eager step.  Returns the
+    medians by name and mode."""
     import numpy as np
     import torch
-    rates = {name: [] for name in runs}
-    snaps = {name: runs[name][0].snapshot() for name in fresh}
-    for _ in range(repeats):
+    modes = ("captured", "eager")
+    rates = {name: {m: [] for m in modes} for name in runs}
+    snaps = {name: s.snapshot() for name, (s, _) in runs.items()}
+    for k in range(repeats):
         for name, (s, p) in runs.items():
-            if name in snaps:
+            for mode in (modes if k % 2 == 0 else modes[::-1]):
                 s.restore(snaps[name])
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            s.run(10, dt=p.dt)
-            torch.cuda.synchronize()
-            rates[name].append(s.dof * s.n_stages
-                               * 10 / (time.perf_counter() - t0))
-    for name in snaps:
-        runs[name][0].restore(snaps[name])
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                s.run(10, dt=p.dt, graph=mode == "captured")
+                torch.cuda.synchronize()
+                rates[name][mode].append(s.dof * s.n_stages * 10
+                                         / (time.perf_counter() - t0))
+    out = {}
     for name, (s, p) in runs.items():
-        q1, med, q3 = np.percentile(rates[name], [25, 50, 75])
-        log(f"rate {name}: median {med:.6e} [{q1:.6e}, {q3:.6e}] "
-            f"DOF*RK-stage/s over {repeats} interleaved 10-step "
-            f"repeats; {launches_per_stage(s, p.dt):.1f} launches per RK "
-            f"stage; on [{card}]")
+        out[name] = {m: float(np.median(rates[name][m])) for m in modes}
+        for mode in modes:
+            q1, med, q3 = np.percentile(rates[name][mode], [25, 50, 75])
+            kernels = step_kernels(s, p.dt, mode == "captured")[0]
+            log(f"rate {name} {mode}: median {med:.6e} [{q1:.6e}, "
+                f"{q3:.6e}] DOF*RK-stage/s over {repeats} interleaved "
+                f"10-step repeats; {kernels / s.n_stages:.1f} device "
+                f"kernels per RK stage; on [{card}]")
+        log(f"rate {name}: captured / eager "
+            f"{out[name]['captured'] / out[name]['eager']:.3f}")
         if not np.isfinite(s.residual_norm(1)).all():
             raise AssertionError(f"{name} went non-finite in the repeats")
-    return {name: float(np.median(r)) for name, r in rates.items()}
+        s.restore(snaps[name])
+    return out
 
 
 def run_driver(deck, outdir, *extra):
@@ -1545,6 +1665,8 @@ def phase_driver(card, api_solver, api_rate):
     t0 = time.perf_counter()
     out, launches, wall = run_driver(deck("run"), d)
     total = time.perf_counter() - t0
+    if not re.search(r"^run path: SoA \(fast\) captured$", out, re.M):
+        raise AssertionError("the driver's steps did not run captured")
     row = np.array(re.search(r"^iter +20 .*res: (.*)$", out, re.M)
                    .group(1).split(), dtype=float)
     gold, rtol = slice_gate("plain")
@@ -1605,9 +1727,9 @@ def phase_driver(card, api_solver, api_rate):
         events = json.load(f)["traceEvents"]
     n_dev = sum(1 for e in events if e.get("cat") in ("kernel", "gpu_memcpy",
                                                       "gpu_memset"))
-    log(f"driver plain launches per RK stage {n_dev / 50:.1f} ({n_dev} "
-        "device kernels, copies and memsets in its profiled first chunk: "
-        "10 steps of 5 stages and one monitor residual)")
+    log(f"driver plain device kernels per RK stage {n_dev / 50:.1f} ({n_dev} "
+        "device kernels, copies and memsets in its profiled second chunk: "
+        "10 replayed steps of 5 stages and one monitor residual)")
     return rows_first
 
 
@@ -1667,6 +1789,9 @@ def phase_sharded_small(counts):
         gpu.run(2, dt=p.dt)
         torch.cuda.synchronize()
         run_counts = dict(volume_tdisf.by_variant)
+        if not gpu.run_path.endswith("captured"):
+            raise AssertionError(f"sharded {name}: run path "
+                                 f"{gpu.run_path!r}")
         cpu.run(2, dt=p.dt)
         one.run(2, dt=p.dt)
         ug, uc = (flat(s.gather_u()) for s in (gpu, cpu))
@@ -1694,10 +1819,12 @@ def phase_sharded(card, counts, plain):
     on the one card, through the API: 10 + 10 steps each, gated row by
     row as the single-device slice is (`channel` row 3 at 0.25); the
     volume kernel launched on every shard's every block at every RK stage
-    (shards x blocks x stages, and the monitor's); then their rates beside
-    single-device `plain` (``plain``: its solver and deck) in
-    SHARDED_REPEATS interleaved repeats, and launches per RK stage; the
-    `channel` repeats each start from its initial state: the deck's body
+    (shards x blocks x stages, and the monitor's), counted per replay;
+    each cell's graph against its eager step (graph_vs_eager); then their
+    rates, captured and eager, beside single-device `plain` (``plain``:
+    its solver and deck) in SHARDED_REPEATS interleaved repeats, and
+    device kernels per RK stage; the `channel` repeats each start from
+    its initial state: the deck's body
     force grows about 100-fold every 10 steps at bench.run_channel's dt,
     and scripts/shard_controls.py on an H100 read the single-device run
     non-finite by step 60 in f32 and by step 70 in f64, the 3 shards at the
@@ -1706,7 +1833,7 @@ def phase_sharded(card, counts, plain):
     import numpy as np
     import torch
     from hifiles_tpu_torch.solver.volume import volume_tdisf
-    runs, fresh = {"plain": plain}, ()
+    runs = {"plain": plain}
     for cell, (name, n) in SHARDED_SLICES.items():
         p, mesh = slice_case(name)
         t0 = time.perf_counter()
@@ -1720,8 +1847,7 @@ def phase_sharded(card, counts, plain):
         volume_tdisf.launches = 0
         volume_tdisf.by_variant.clear()
         volume_tdisf.by_shape.clear()
-        s.run(10, dt=p.dt)
-        torch.cuda.synchronize()
+        held = captured_run(s, 10, p.dt)
         t0 = time.perf_counter()
         s.run(10, dt=p.dt)
         torch.cuda.synchronize()
@@ -1730,6 +1856,9 @@ def phase_sharded(card, counts, plain):
         launches = volume_tdisf.launches
         counts[cell] = dict(volume_tdisf.by_variant)
         counts[cell + ":blocks"] = dict(volume_tdisf.by_shape)
+        log(f"sharded {cell}: run path {s.run_path!r}, capture "
+            f"{s.capture_seconds:.3f} s, the graph holds "
+            f"{held / 2**20:.1f} MiB")
         gold, rtol = slice_gate(name)
         if name == "channel":
             rtol = CHANNEL_RTOL
@@ -1750,14 +1879,16 @@ def phase_sharded(card, counts, plain):
         if launches < need:
             raise AssertionError(f"volume_tdisf launched {launches} times "
                                  f"on sharded {cell}, expected >= {need}")
+        GRAPHS[cell] = graph_vs_eager(card, cell, s, p.dt)
         if name == "channel":
             s.restore(ic)
-            fresh = (cell,)
         runs[cell] = (s, p)
-    rates = phase_rates(card, runs, SHARDED_REPEATS, fresh)
+    rates = phase_rates(card, runs, SHARDED_REPEATS)
     for cell in SHARDED_SLICES:
-        log(f"sharded {cell}: rate {rates[cell] / rates['plain']:.3f} x "
-            f"single-device plain's in the same turns")
+        for mode in ("captured", "eager"):
+            log(f"sharded {cell}: {mode} rate "
+                f"{rates[cell][mode] / rates['plain'][mode]:.3f} x "
+                f"single-device plain's {mode} rate in the same turns")
 
 
 def phase_driver_sharded(card, counts, rows_one):
@@ -1786,6 +1917,9 @@ def phase_driver_sharded(card, counts, rows_one):
                                      "--devices", str(DRIVER_SHARDS),
                                      "--profile")
     total = time.perf_counter() - t0
+    if not re.search(r"^run path: SoA \(fast\) captured$", out, re.M):
+        raise AssertionError("the sharded driver's steps did not run "
+                             "captured")
     row = np.array(re.search(r"^iter +20 .*res: (.*)$", out, re.M)
                    .group(1).split(), dtype=float)
     gold, rtol = slice_gate("plain")
@@ -1835,8 +1969,9 @@ def phase_driver_sharded(card, counts, rows_one):
         f"{wall['steps'] / 50 * 1e3:.4f} ms per RK stage; set-up "
         f"{wall['solver set-up']:.3f} s; volume_tdisf launches {launches} "
         f"(>= shards x stages = {need}), by (variant, U, E) "
-        f"{counts['driver --devices:blocks']}; {n_dev / 50:.1f} launches "
-        f"per RK stage in its profiled first chunk; on [{card}]")
+        f"{counts['driver --devices:blocks']}; {n_dev / 50:.1f} device "
+        f"kernels per RK stage in its profiled second chunk (replays); on "
+        f"[{card}]")
     if launches.get(ns_key, 0) < need:
         raise AssertionError(f"volume_tdisf[ns] launched "
                              f"{launches.get(ns_key, 0)} times by the "
@@ -1998,21 +2133,34 @@ def main():
     phase_build()
     recs = phase_kernel()
     counts = {}
+    log_memory("the kernel phase")
     phase_small(counts)
     phase_sharded_small(counts)
+    log_memory("the small phases")
     phase_reference(counts)
+    log_memory("the reference phase")
     runs = {name: phase_slice(card, name, counts) for name in SLICES}
-    phase_channel(card, counts)
-    # `plain` beside the new slices: the same host in the same turns
-    runs = {"plain": runs["plain"]}
+    runs["channel"] = phase_channel(card, counts)
+    log_memory("the TGV slices and the channel")
+    # every cell's rates in the same turns, on the same host
     runs.update((name, phase_slice(card, name, counts))
                 for name in NEW_SLICES + MIXED_SLICES + INLET_SLICES)
     phase_sem(card, *runs["sem"])
+    log_memory("the other slices")
     rates = phase_rates(card, runs)
     phase_sharded(card, counts, runs["plain"])
-    rows_one = phase_driver(card, runs["plain"][0], rates["plain"])
+    log_memory("the sharded cells")
+    rows_one = phase_driver(card, runs["plain"][0],
+                            rates["plain"]["captured"])
     phase_driver_sharded(card, counts, rows_one)
     phase_diagnostics(card)
+    log_memory("the driver and diagnostics")
+    for name, g in GRAPHS.items():
+        log(f"graph summary {name}: captured vs eager max |diff| "
+            f"{g['diff']:.3e} (bit for bit {g['exact']}); device kernels per "
+            f"RK stage replayed {g['replay']:.1f}, eager {g['eager']:.1f}; "
+            f"volume kernel per step {g['k1_replay']}; capture "
+            f"{g['capture_s']:.3f} s")
     log(f"chip_smoke: phases 1-7 in {time.perf_counter() - t0:.1f} s")
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "hifiles_tpu")]

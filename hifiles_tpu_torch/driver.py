@@ -10,7 +10,12 @@ dumps and the final analytic-error report, printing the same lines and
 writing the same files as the JAX driver.  Its own options:
 ``--device cuda|cpu`` (the card unless the CPU is asked for), ``--f64``
 (float64; float32 otherwise) and ``--profile`` (a torch.profiler chrome
-trace of the first chunk in ``<outdir>/torch_trace``).  ``--devices N``
+trace in ``<outdir>/torch_trace`` of the second chunk, replays of the
+captured step, or of the first when it is the only one).  On the card
+every chunk runs through the solver's captured step (BlockLoop.run; its
+``run_path`` is printed after the first chunk); the monitor, the writers,
+compute_dt, gradient_fn, sensor_fn and residual_norm run eagerly between
+chunks.  ``--devices N``
 runs the mesh as N shards (parallel.ShardedSolver, or
 parallel.ShardedMixedSolver for mixed and prism meshes) placed by
 parallel.select_devices on the cards of ``--device`` (round-robin), or on
@@ -168,20 +173,24 @@ def main(argv=None):
                      getattr(p, "probe_freq", 0) or 0})
     chunk = max(1, min(e for e in events if e > 0))
 
+    # torch.profiler trace of one chunk, the JAX driver's jax.profiler
+    # slot (view with perfetto or chrome://tracing): the second, whose
+    # steps are replays of the step the first captured
     prof = None
-    if profile:
-        # torch.profiler trace of the first chunk, the JAX driver's
-        # jax.profiler slot (view with perfetto or chrome://tracing)
-        from torch.profiler import ProfilerActivity
-        acts = [ProfilerActivity.CPU]
-        if on_card:
-            acts.append(ProfilerActivity.CUDA)
-        prof = torch.profiler.profile(activities=acts)
-        prof.start()
+    profile_at = (i0 + (chunk if p.n_steps > chunk else 0) if profile
+                  else None)
 
     i = i0
     while i < i0 + p.n_steps:
         n = min(chunk, i0 + p.n_steps - i)
+        if i == profile_at:
+            from torch.profiler import ProfilerActivity
+            acts = [ProfilerActivity.CPU]
+            if on_card:
+                acts.append(ProfilerActivity.CUDA)
+                torch.cuda.synchronize()
+            prof = torch.profiler.profile(activities=acts)
+            prof.start()
         # the first chunk also pays the process's first launches
         with timed("steps" if i > i0 else "first chunk"):
             # ShardedMixedSolver takes its dt from the twin, as the JAX
@@ -191,6 +200,8 @@ def main(argv=None):
                               else sync().compute_dt()))
             if on_card:
                 torch.cuda.synchronize()
+        if i == i0:
+            print(f"run path: {solver.run_path}")
         i += n
         if i % p.monitor_res_freq == 0 or i == i0 + p.n_steps:
             with timed("monitor"):
@@ -239,7 +250,7 @@ def main(argv=None):
             else:
                 with timed("vtu"):
                     write_vtu(sync(), outdir, i)
-        if prof is not None and i - i0 >= chunk:
+        if prof is not None and i - profile_at >= n:
             if on_card:
                 torch.cuda.synchronize()
             prof.stop()

@@ -229,10 +229,12 @@ def read_sem_restart(directory: str, step: int, solver) -> bool:
                     ).reshape(n_eddy, 3)
     sgn = np.array([float(next(it)) for _ in range(3 * n_eddy)]
                    ).reshape(n_eddy, 3)
-    draws = solver._ti_state[2]
+    pos, signs, _ = solver._ti_state
     as_t = lambda a: torch.as_tensor(a, dtype=solver.dtype,
                                      device=solver.device)
-    solver._ti_state = (as_t(eddy), as_t(sgn), draws)
+    # into the inlet's own buffers, which a captured step reads
+    pos.copy_(as_t(eddy))
+    signs.copy_(as_t(sgn))
     return True
 
 

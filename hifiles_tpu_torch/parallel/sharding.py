@@ -558,7 +558,7 @@ class ShardedSolver(ShardedLoop):
     def _local_dt(self, dt):
         """A per-element dt, (E,) in element order or (n, El) padded as
         compute_dt gives it -> (a ShardState of (1, 1, E_s) planes, its
-        minimum as a float)."""
+        minimum, 0-d on the controller's device)."""
         dt = torch.as_tensor(dt, dtype=self.dtype, device=self.device)
         if dt.shape == (self.n_eles,):
             dt = dt[torch.as_tensor(self.owner, device=self.device)]
@@ -569,4 +569,4 @@ class ShardedSolver(ShardedLoop):
         parts = [dt[s, :n].view(1, 1, n).to(dev)
                  for s, (n, dev) in enumerate(zip(self.sizes, self.devices))]
         dt_min = torch.stack([x.min().to(self.device) for x in parts]).min()
-        return ShardState(parts), float(dt_min)
+        return ShardState(parts), dt_min

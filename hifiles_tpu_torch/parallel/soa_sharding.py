@@ -188,6 +188,14 @@ class ShardState:
     def clone(self):
         return ShardState(p.clone() for p in self.parts)
 
+    def copy_(self, x):
+        """Copy ShardState ``x`` part by part, or one tensor (a 0-d dt)
+        into every part."""
+        xs = x.parts if isinstance(x, ShardState) else [x] * len(self.parts)
+        for p, q in zip(self.parts, xs, strict=True):
+            p.copy_(q)
+        return self
+
     def add_(self, x, alpha=1.0):
         for p, q in zip(self.parts, x.parts):
             p.add_(q, alpha=alpha)
@@ -369,7 +377,13 @@ class ShardedLoop(BlockLoop):
     def scatter_u(self, u) -> None:
         """Inverse of gather_u: the state ``u`` in the twin's layout onto
         the shards (sharding.py:1360-1368)."""
-        self.u_soa = self._from_numpy(self._split(u))
+        self.u_soa.copy_(self._from_numpy(self._split(u)))
+
+    def _global_dt_rk(self):
+        """What the RK update takes for a global dt: a 0-d copy on each
+        shard's device."""
+        return ShardState(torch.zeros((), dtype=self.dtype, device=dev)
+                          for dev in self.devices)
 
     def sync_twin(self):
         """The twin ``base`` holding this run's state, clock and featured

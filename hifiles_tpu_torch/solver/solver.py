@@ -10,11 +10,19 @@ forcing and running time averages; fixed, global CFL or per-element
 local time steps (compute_dt, solver.py:570-641); and the diagnostics the
 writers read (the corrected gradient, the shock sensor, the analytic error
 with its gradient row).  Setup runs once on the
-host in numpy; the time loop is a Python loop of RK steps on the
-elements-minor (U, F, E) state.  The featured carry (ramp counter, mass-flux
-memory, simulated time, averages, the inlet's eddies) stays in device
-tensors of the state's dtype, as the JAX scan carry does, so a step never
-waits for the device.
+host in numpy; the time loop steps the elements-minor (U, F, E) state.
+The featured carry (ramp counter, mass-flux memory, simulated time,
+averages, the inlet's eddies) stays in device tensors of the state's
+dtype, as the JAX scan carry does, so a step never waits for the device.
+
+The JAX package compiles a chunk of steps into one program (``jax.jit`` of
+``_make_run_chunk``, solver.py:273-482, a ``lax.scan`` over the steps).
+The port's counterpart (``BlockLoop._make_run_chunk``) captures one whole
+step once as a CUDA graph (solver/graph.py) and replays it: every buffer
+the step reads or writes (the state, the RK register, the featured carry,
+the inlet's eddies and fluctuations, the body-force column and dt itself)
+is allocated once and never rebound, and everything outside the step
+(set_state, restore, the dt of each ``run``) copies into it.
 
 ``BlockLoop`` holds what Solver shares with multiblock.MixedSolver, for
 which a single-type mesh is a mixed mesh with one block: the state is one
@@ -24,6 +32,10 @@ on those views.
 """
 
 from __future__ import annotations
+
+import os
+import sys
+import time
 
 import numpy as np
 import torch
@@ -42,11 +54,13 @@ from ..models.viscous import sutherland_mu
 from ..ops.stabilization import make_shock_capture_soa
 from .bc import BCFunctions, make_bc_functions
 from .elements import build_element_block
+from .graph import CudaStepGraph
 from .ics import analytic_solution, apply_patch, initial_condition
 from .residual import ResidualConfig
 from .residual_soa import make_residual_soa
 from .step import N_STAGES, make_step_fn
 from .turb_inlet import build_turb_inlet
+from .volume import captured_launches, count_replay
 
 
 AVERAGE_FIELDS = ("rho_average", "u_average", "v_average", "w_average",
@@ -156,6 +170,15 @@ def _per_block(x):
     return tuple(x) if isinstance(x, (tuple, list)) else (x,)
 
 
+def _log_run_path(solver_name: str, path: str) -> None:
+    """One line naming the run path a solver took, on stderr, as the JAX
+    package's log_residual_path (hifiles_tpu/utils/__init__.py:9-17);
+    silenced with HIFILES_QUIET=1."""
+    if not os.environ.get("HIFILES_QUIET"):
+        print(f"hifiles_tpu_torch: {solver_name} run path = {path}",
+              file=sys.stderr)
+
+
 class BlockLoop:
     """The time loop, featured carry and diagnostics of a solver whose
     state is one or several element blocks (Solver, MixedSolver).
@@ -164,7 +187,14 @@ class BlockLoop:
     blocks and residual, the turbulent inlet with ``_setup_inlet``, and
     calls ``_setup_loop`` with its blocks in state order, each block's
     global cell ids, and ``rhs(u, ramp, fluc=None)``, which maps a state
-    tensor to a new right-hand-side tensor of the same layout."""
+    tensor to a new right-hand-side tensor of the same layout.
+
+    ``run`` steps through ``_make_run_chunk``: on the card one step is
+    captured as a CUDA graph and replayed; ``_step_graph`` makes the
+    graph (graph.CudaStepGraph; a test may set a stand-in that captures
+    on the CPU)."""
+
+    _step_graph = None
 
     def _setup(self, run_input: RunInput, mesh: MeshData, device, dtype,
                unsupported):
@@ -224,12 +254,16 @@ class BlockLoop:
                 self.dtype), plane_index, plane_shape, self.device,
             self.dtype, slots=slots)
         if self.turb_inlet is not None:
-            self._ti_state = self.turb_inlet.init_state
+            pos, sgn, draws = self.turb_inlet.init_state
+            self._ti_state = (pos.clone(), sgn.clone(), draws)
             self._fpt_rows = fpt_rows
+            self._fluc = torch.zeros((self.n_dims,) + tuple(plane_shape),
+                                     dtype=self.dtype, device=self.device)
 
     def set_inlet_draws(self, draws):
         """Take the turbulent inlet's random draws from ``draws`` (a
-        turb_inlet.DeviceDraws or ReplayDraws) from the next step on."""
+        turb_inlet.DeviceDraws or ReplayDraws) from the next step on (a
+        captured step is captured anew)."""
         pos, sgn, _ = self._ti_state
         self._ti_state = (pos, sgn, draws)
 
@@ -250,11 +284,12 @@ class BlockLoop:
                    for b, dev in zip(blocks, self._devs)]
 
             def pre_step(u):
+                """The filtered state, written back into ``u``."""
                 out = self._alloc()
                 for s, v, o in zip(svv, self._views(u), self._views(out)):
                     torch.matmul(s, v.reshape(v.shape[0], -1),
                                  out=o.view(o.shape[0], -1))
-                return out
+                u.copy_(out)
             self._pre_step = pre_step
         # shock capture after every RK stage, in place on each block
         # (solver.py:197-213, multiblock.py:501-525); its sensors are the
@@ -273,6 +308,17 @@ class BlockLoop:
                 return u
         self.n_stages = N_STAGES[p.adv_type]
         self._setup_featured()
+        # the run chunk's state: its step graph, what it was captured for
+        # (dt's kind, the inlet's draw object) and the dt buffers
+        self._graph = self._graph_key = None
+        self._graph_launches = self.capture_seconds = None
+        self.run_path, self._logged = None, set()
+        self._dt_kind = "global"
+        self._dt_s = torch.zeros((), dtype=dt_, device=self.device)
+        self._dt_rk = self._global_dt_rk()
+        # the state and featured carry, bound by the first set_state
+        self.u_soa = self.reg_soa = self.u_avg_soa = None
+        self._k = self._mdot_old = self._t_sim = None
 
         def stage_rhs(u):
             r = rhs(u, self._k if self._has_ramp else None, self._fluc)
@@ -301,6 +347,8 @@ class BlockLoop:
         self._featured = self._has_ramp or self._forcing or self._avg
         if not self._forcing:
             return
+        # the body-force column, written by every step
+        self._bf = torch.zeros((nF, 1), dtype=dt_, device=dev)
         # inflow plane = cyclic faces with normal -x, per block
         # (ref:src/eles.cpp:5313-5337, the reference's inlet hack)
         where = np.zeros((mesh.n_cells, 2), dtype=np.int64)
@@ -385,23 +433,32 @@ class BlockLoop:
         ``mdot_old`` (default body_force_mdot0), the averaging time
         ``t_sim`` and the (E, U, K) running averages ``u_avg`` (default
         zero)."""
-        self.u_soa = self._from_numpy(_per_block(u))
-        self.reg_soa = self._from_numpy(_per_block(reg))
+        self._put("u_soa", self._from_numpy(_per_block(u)))
+        self._put("reg_soa", self._from_numpy(_per_block(reg)))
         self.time = float(time)
         scalar = lambda v: torch.tensor(float(v), dtype=self.dtype,
                                         device=self.device)
         p = self.p
         if mdot_old is None:
             mdot_old = p.body_force_mdot0 if self._forcing else 0.0
-        self._k, self._mdot_old, self._t_sim = (
-            scalar(iter_k), scalar(mdot_old), scalar(t_sim))
-        self._bf = None
-        self.u_avg_soa = None
+        self._put("_k", scalar(iter_k))
+        self._put("_mdot_old", scalar(mdot_old))
+        self._put("_t_sim", scalar(t_sim))
         if self._avg:
             K = len(p.average_fields)
             if u_avg is None:
                 u_avg = [np.zeros((E, U, K)) for U, E in self._shapes]
-            self.u_avg_soa = self._from_numpy(_per_block(u_avg), K)
+            self._put("u_avg_soa", self._from_numpy(_per_block(u_avg), K))
+
+    def _put(self, name, value):
+        """Bind the step's buffer ``name`` to ``value`` the first time, and
+        afterwards copy ``value`` into it: a captured step keeps reading
+        the buffers it was captured with."""
+        buf = getattr(self, name)
+        if buf is None:
+            setattr(self, name, value)
+        else:
+            buf.copy_(value)
 
     def _state_out(self, arrays):
         """What the ``u`` and ``u_avg`` properties return for the per-block
@@ -438,45 +495,167 @@ class BlockLoop:
 
     def _local_dt(self, dt):
         """A per-element dt -> (the tensor the RK update broadcasts, its
-        minimum as a float); the solver's subclass says which it takes."""
+        minimum as a 0-d tensor on the solver's device); the solver's
+        subclass says which it takes."""
         raise NotImplementedError(
             f"hifiles_tpu_torch {type(self).__name__}: a per-element dt; "
             "the JAX MixedSolver steps every deck with one global dt "
             "(multiblock.py:843-874)")
 
-    def run(self, n_steps: int, dt=None):
+    def run(self, n_steps: int, dt=None, graph: bool = True):
         """Advance n_steps RK steps of size dt (default: compute_dt()) and
         return the state tensor.  ``dt`` is a float, a 0-d tensor, or (on
         Solver) an (E,) array of per-element steps, dt_type 2's local dt:
         the RK update takes it per element, while body forcing, the
-        averages and the clock take its minimum, read once per call
-        (solver.py:615-641 of the JAX package).  The turbulent inlet
-        advances once per step, at stage 0, after the SVV pre-step, from
-        the state's flux-point rows and that minimum (solver.py:413-425;
-        ref:src/solver.cpp:111-118); its fluctuations hold for the step's
-        stages."""
+        averages and the inlet take its minimum, on the device, and the
+        clock that minimum read once per call (solver.py:615-641 of the
+        JAX package).  The turbulent inlet advances once per step, at
+        stage 0, after the SVV pre-step, from the state's flux-point rows
+        (solver.py:413-425; ref:src/solver.cpp:111-118); its fluctuations
+        hold for the step's stages.
+
+        On the card the steps run through ``_make_run_chunk``, one step
+        captured as a CUDA graph and replayed (``run_path`` ends in
+        "captured"); ``graph=False`` runs the same step eagerly, for
+        comparisons and profiles ("eager").  On the CPU, and with shards
+        on more than one device, the run is eager."""
         dt = self.compute_dt() if dt is None else dt
-        if getattr(dt, "ndim", 0) >= 1:
-            dt_rk, dt = self._local_dt(dt)
+        dt_min = self._load_dt(dt)
+        chunk = self._make_run_chunk() if graph else None
+        path = "SoA featured (fast)" if self._featured or \
+            self.turb_inlet is not None else "SoA (fast)"
+        devs = set(self._devs)
+        self.run_path = path + (" captured" if chunk is not None else
+                                " eager" if len(devs) == 1 else
+                                f" eager (shards on {len(devs)} devices)")
+        if self.run_path not in self._logged:
+            self._logged.add(self.run_path)
+            _log_run_path(type(self).__name__, self.run_path)
+        if chunk is not None:
+            chunk(n_steps)
         else:
-            dt_rk = dt = float(dt)
-        for _ in range(n_steps):
-            if self._pre_step is not None:
-                self.u_soa = self._pre_step(self.u_soa)
-            if self.turb_inlet is not None:
-                self._ti_state, self._fluc = self.turb_inlet.update(
-                    self._ti_state, self._fpt_rows(self.u_soa), dt)
-            if self._forcing:
-                self._bf = self._body_force(self.u_soa, dt)
-            self.u_soa, self.reg_soa = self._step(self.u_soa, self.reg_soa,
-                                                  dt_rk)
-            if self._featured:
-                self._t_sim += dt
-                self._k += 1.0
-                if self._avg:
-                    self._average(dt)
-        self.time += dt * n_steps
+            for _ in range(n_steps):
+                self._stage_draws()
+                self._step_body()
+        self.time += dt_min * n_steps
         return self.u_soa
+
+    def _load_dt(self, dt):
+        """Copy ``dt`` into the step's dt buffers: ``_dt_s``, 0-d in the
+        state's dtype, the step's dt (a local dt's minimum), and
+        ``_dt_rk``, what the RK update takes (``_dt_s`` itself, a (1, 1, E)
+        plane, or per shard), allocated anew, and the captured step
+        dropped, when dt's kind changes.  Returns dt (its minimum) as a
+        float, the clock's step."""
+        rk, low = (self._local_dt(dt) if getattr(dt, "ndim", 0) >= 1
+                   else (None, dt))
+        if rk is None:
+            kind = "global"
+        elif isinstance(rk, torch.Tensor):
+            kind = tuple(rk.shape)
+        else:
+            kind = tuple(tuple(x.shape) for x in rk.parts)
+        if kind != self._dt_kind:
+            self.release_graph()
+            self._dt_kind = kind
+            self._dt_rk = (self._global_dt_rk() if rk is None
+                           else rk.clone())
+        if isinstance(low, torch.Tensor):
+            self._dt_s.copy_(low)
+        else:
+            self._dt_s.fill_(float(low))
+        if rk is not None:
+            self._dt_rk.copy_(rk)
+        elif self._dt_rk is not self._dt_s:
+            self._dt_rk.copy_(self._dt_s)
+        return float(low)
+
+    def _global_dt_rk(self):
+        """What the RK update takes for a global dt: ``_dt_s``."""
+        return self._dt_s
+
+    def _stage_draws(self):
+        """Before each step, outside it: a ReplayDraws inlet copies the
+        step's draws to the device (turb_inlet.ReplayDraws.stage)."""
+        if self._ti_state is not None:
+            stage = getattr(self._ti_state[2], "stage", None)
+            if stage is not None:
+                stage(self.turb_inlet.draw_shapes)
+
+    def _step_body(self):
+        """One time step on the step's buffers, which it updates in place
+        and never rebinds: what the CUDA graph holds (solver.py:380-482 of
+        the JAX package, the scan's body)."""
+        dt = self._dt_s
+        if self._pre_step is not None:
+            self._pre_step(self.u_soa)
+        if self.turb_inlet is not None:
+            pos, sgn, _ = self._ti_state
+            (new_pos, new_sgn, _), fluc = self.turb_inlet.update(
+                self._ti_state, self._fpt_rows(self.u_soa), dt)
+            if new_pos is not pos:
+                pos.copy_(new_pos)
+                sgn.copy_(new_sgn)
+            self._fluc.copy_(fluc)
+        if self._forcing:
+            self._bf.copy_(self._body_force(self.u_soa, dt))
+        self._step(self.u_soa, self.reg_soa, self._dt_rk)
+        if self._featured:
+            self._t_sim += dt
+            self._k += 1.0
+            if self._avg:
+                self._average(dt)
+
+    def _make_run_chunk(self):
+        """The counterpart of the JAX ``_make_run_chunk`` (solver.py:
+        279-482, multiblock.py:724-840): ``chunk(n_steps)`` advances
+        n_steps steps as replays of one captured step, or None where the
+        run is eager (the CPU, or shards on several devices).
+
+        The first call captures: one warm-up step runs eagerly on the
+        capture stream (it loads the volume kernel's instantiations and
+        cuBLAS's handles and workspace) and counts as the chunk's first
+        step; then the step is captured, which runs nothing, and replayed
+        for the others, with no host sync between replays.  The step is
+        captured anew only when its structure changes: dt's kind (global
+        or per element) or the inlet's draw object.  A ReplayDraws inlet
+        stages each step's draws before its replay.  The volume kernel's
+        counters count each replay's launches (volume.count_replay)."""
+        make = self._step_graph
+        if make is None:
+            if self.device.type != "cuda" or set(self._devs) != {self.device}:
+                return None
+            make = CudaStepGraph
+        draws = None if self._ti_state is None else self._ti_state[2]
+        key = (self._dt_kind, draws)
+        if self._graph is not None and self._graph_key != key:
+            self.release_graph()
+
+        def chunk(n_steps):
+            left = n_steps
+            if self._graph is None and left > 0:
+                gen = getattr(draws, "gen", None)
+                g = make(self.device, [] if gen is None else [gen])
+                self._stage_draws()
+                g.warm_up(self._step_body)
+                left -= 1
+                t0 = time.perf_counter()
+                self._graph_launches = captured_launches(
+                    lambda: g.capture(self._step_body))
+                self.capture_seconds = time.perf_counter() - t0
+                self._graph, self._graph_key = g, key
+            for _ in range(left):
+                self._stage_draws()
+                self._graph.replay()
+                count_replay(self._graph_launches)
+        return chunk
+
+    def release_graph(self):
+        """Drop the captured step and the memory its graph holds; the next
+        captured run captures anew."""
+        g, self._graph = self._graph, None
+        if g is not None:
+            g.release()
 
     def snapshot(self):
         """A copy of what a run advances: the state, RK register and clock,
@@ -493,17 +672,21 @@ class BlockLoop:
                     avg=c(self.u_avg_soa), ti=ti)
 
     def restore(self, snap):
-        """Return to a ``snapshot()`` (which stays usable)."""
-        c = lambda t: None if t is None else t.clone()
-        self.u_soa, self.reg_soa, self.time = c(snap["u"]), c(snap["reg"]), \
-            snap["time"]
-        self._k, self._mdot_old, self._t_sim = (c(snap["k"]), c(snap["mdot"]),
-                                                c(snap["t_sim"]))
-        self.u_avg_soa = c(snap["avg"])
+        """Return to a ``snapshot()`` (which stays usable), copying into
+        the step's buffers."""
+        for name, key in (("u_soa", "u"), ("reg_soa", "reg"), ("_k", "k"),
+                          ("_mdot_old", "mdot"), ("_t_sim", "t_sim"),
+                          ("u_avg_soa", "avg")):
+            if snap[key] is not None:
+                getattr(self, name).copy_(snap[key])
+        self.time = snap["time"]
         if snap["ti"] is not None:
             pos, sgn, draws, state = snap["ti"]
+            cur_pos, cur_sgn, _ = self._ti_state
+            cur_pos.copy_(pos)
+            cur_sgn.copy_(sgn)
             draws.set_state(state)
-            self._ti_state = (pos.clone(), sgn.clone(), draws)
+            self._ti_state = (cur_pos, cur_sgn, draws)
 
     def _body_force(self, u, dt):
         """Channel/hill bulk-momentum forcing (solver.py:427-445;
@@ -719,13 +902,13 @@ class Solver(BlockLoop):
     def _local_dt(self, dt):
         """An (E,) per-element dt -> ((1, 1, E) in the state's dtype on the
         device, broadcast along the (U, F, E) state as the JAX chunk does,
-        solver.py:302-303; its minimum as a float)."""
+        solver.py:302-303; its minimum, 0-d)."""
         E = self.block.n_eles
         dt = torch.as_tensor(dt, dtype=self.dtype, device=self.device)
         if dt.shape != (E,):
             raise ValueError(f"local dt of shape {tuple(dt.shape)}; the "
                              f"block has {E} elements")
-        return dt.view(1, 1, E), float(dt.min())
+        return dt.view(1, 1, E), dt.min()
 
     def gradient_fn(self, u) -> np.ndarray:
         """The LDG-corrected physical gradient at the solution points of an

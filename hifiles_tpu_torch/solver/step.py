@@ -44,8 +44,9 @@ N_STAGES = {0: 1, 1: 4, 2: 4, 3: 5, 4: 14}
 
 def _axpy(y, x, a):
     """y += a * x in place: a Python float as add_'s alpha, anything else
-    (a local dt, (1, 1, E), broadcast along the elements) through
-    addcmul_."""
+    (a dt buffer: 0-d, or a local dt (1, 1, E) broadcast along the
+    elements) through addcmul_, which reads it on the device, so that a
+    step captured in a CUDA graph takes a new dt without a new capture."""
     if isinstance(a, (int, float)):
         return y.add_(x, alpha=a)
     return y.addcmul_(x, a)
@@ -63,8 +64,9 @@ def make_step_fn(residual_fn, adv_type: int, post_stage=None):
     ``post_stage(u)``, e.g. shock capture, runs after every stage update and
     must update ``u`` in place.  Coefficients stay Python floats, so an f32
     state stays f32.  ``dt`` is a float, or a tensor in the state's dtype
-    that broadcasts against it (the per-element local dt as a (1, 1, E)
-    plane, as the JAX chunk reshapes it, solver.py:302-303).  ``u`` and
+    that broadcasts against it (0-d, as the JAX chunk's dt_j, solver.py:
+    618-626; the per-element local dt as a (1, 1, E) plane, as the JAX
+    chunk reshapes it, solver.py:302-303).  ``u`` and
     ``reg`` may be any object with these in-place tensor methods, e.g. the
     per-shard state of an element-sharded run (soa_sharding.ShardState,
     which always comes with its register)."""

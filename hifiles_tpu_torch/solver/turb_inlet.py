@@ -156,7 +156,9 @@ def inlet_host_setup(run_input, block, seed: int = 0):
 
 class DeviceDraws:
     """Standard normal and uniform [0, 1) draws from a torch.Generator on
-    ``device``, seeded with ``seed``; its state is the generator's."""
+    ``device``, seeded with ``seed``; its state is the generator's.  A time
+    step captured in a CUDA graph registers ``gen`` with the graph, so
+    that every replay draws new numbers and the state follows them."""
 
     def __init__(self, seed, device, dtype):
         self.device, self.dtype = torch.device(device), dtype
@@ -181,14 +183,21 @@ class DeviceDraws:
 class ReplayDraws:
     """Given arrays handed out in order, one per ``normal`` or ``uniform``
     call, each checked against the shape asked for; its state is the
-    number of arrays handed out."""
+    number of arrays handed out.
+
+    A solver's time loop calls ``stage`` before every step, outside the
+    step: it copies that step's arrays into buffers on the device, which
+    ``normal`` and ``uniform`` then hand out in turn, so that the step,
+    captured in a CUDA graph or not, reads its draws without a copy from
+    the host.  Without ``stage`` each call uploads its array."""
 
     def __init__(self, arrays, device, dtype):
         self.arrays = list(arrays)
         self.device, self.dtype = torch.device(device), dtype
         self.i = 0
+        self._staged, self._turn = None, 0
 
-    def _next(self, shape):
+    def _take(self, shape):
         if self.i >= len(self.arrays):
             raise IndexError(f"ReplayDraws: all {len(self.arrays)} draws "
                              "used")
@@ -197,8 +206,28 @@ class ReplayDraws:
             raise ValueError(f"ReplayDraws: draw {self.i} has shape "
                              f"{tuple(a.shape)}, asked for {tuple(shape)}")
         self.i += 1
-        return torch.as_tensor(np.array(a), dtype=self.dtype,
-                               device=self.device)
+        return torch.as_tensor(np.array(a), dtype=self.dtype)
+
+    def stage(self, shapes):
+        """Copy the next arrays, one per shape of ``shapes`` (one step's
+        draws in the order the step takes them), into the buffers that
+        ``normal`` and ``uniform`` hand out from now on."""
+        if self._staged is None:
+            self._staged = [torch.empty(tuple(sh), dtype=self.dtype,
+                                        device=self.device) for sh in shapes]
+        for buf, sh in zip(self._staged, shapes, strict=True):
+            buf.copy_(self._take(sh))
+        self._turn = 0
+
+    def _next(self, shape):
+        if self._staged is None:
+            return self._take(shape).to(self.device)
+        buf = self._staged[self._turn % len(self._staged)]
+        if tuple(buf.shape) != tuple(shape):
+            raise ValueError(f"ReplayDraws: staged draw of shape "
+                             f"{tuple(buf.shape)}, asked for {tuple(shape)}")
+        self._turn += 1
+        return buf
 
     normal = uniform = _next
 

@@ -349,7 +349,9 @@ def volume_tdisf(u, grad, jg, prm: VolumeParams, delta=None, wdist=None,
     ``volume_tdisf.launches`` counts the kernel launches,
     ``volume_tdisf.by_variant`` splits them by ``variant`` and
     ``volume_tdisf.by_shape`` by (variant, U, E), which tells apart the
-    blocks of a mixed mesh (CPU calls do not count)."""
+    blocks of a mixed mesh (CPU calls do not count).  A launch recorded
+    into a CUDA graph counts once per replay of the graph
+    (``captured_launches``, ``count_replay``)."""
     _check(u, grad, jg, prm, delta, wdist, extra)
     if u.device.type == "cpu":
         return volume_tdisf_ref(u, grad, jg, prm, delta, wdist, extra)
@@ -389,3 +391,30 @@ def volume_tdisf(u, grad, jg, prm: VolumeParams, delta=None, wdist=None,
 volume_tdisf.launches = 0
 volume_tdisf.by_variant = collections.Counter()
 volume_tdisf.by_shape = collections.Counter()
+
+
+def captured_launches(capture):
+    """Run ``capture()``, which records a step's launches into a CUDA graph
+    without running them, and return the counters' increase over it
+    (launches, by_variant, by_shape): the launches of one replay.  The
+    counters go back to what they were, since nothing ran."""
+    f = volume_tdisf
+    before = (f.launches, collections.Counter(f.by_variant),
+              collections.Counter(f.by_shape))
+    capture()
+    delta = (f.launches - before[0], f.by_variant - before[1],
+             f.by_shape - before[2])
+    f.launches = before[0]
+    for now, was in ((f.by_variant, before[1]), (f.by_shape, before[2])):
+        now.clear()
+        now.update(was)
+    return delta
+
+
+def count_replay(delta):
+    """Add one replay's launches ``delta`` (captured_launches) to the
+    counters: the replay launched them, though no host call did."""
+    f = volume_tdisf
+    f.launches += delta[0]
+    f.by_variant.update(delta[1])
+    f.by_shape.update(delta[2])

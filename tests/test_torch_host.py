@@ -170,6 +170,30 @@ s = ShardedMixedSolver(vortex_input(order=2), ht.periodic_mixed_mesh_2d(
     3, 3, -10, 10, -10, 10), devices=select_devices(2, "cpu"))
 s.run(1, dt=1e-4)
 assert np.isfinite(s.norm_residual(1)).all()
+# the run chunk's capture seam with a stand-in that captures on the CPU
+# (a capture runs nothing: the solver returns to its snapshot)
+class CpuGraph:
+    def __init__(self, solver):
+        self.solver = solver
+    def warm_up(self, body):
+        body()
+    def capture(self, body):
+        snap = self.solver.snapshot()
+        body()
+        self.solver.restore(snap)
+    def replay(self):
+        self.solver._step_body()
+    def release(self):
+        pass
+p = tgv_input(order=2)
+a, b = (ht.Solver(p, ht.periodic_hex_mesh(3, 3, 3), device="cpu",
+                  dtype=torch.float64) for _ in range(2))
+a._step_graph = lambda device, gens: CpuGraph(a)
+a.run(3, dt=p.dt)
+b.run(3, dt=p.dt, graph=False)
+assert a.run_path == "SoA (fast) captured" and b.run_path.endswith("eager")
+assert torch.equal(a.u_soa, b.u_soa)
+assert "hifiles_tpu_torch.solver.graph" in sys.modules
 # python -m hifiles_tpu_torch on a tiny deck: 2 steps of the TGV on 3^3
 # hexes, p=1, with plots, history and an ASCII restart
 import os, runpy, tempfile
@@ -208,7 +232,8 @@ def test_port_runs_with_jax_blocked():
     channel and a prism box; SEM and white-noise inlets on quad and hex
     Solvers and a tri+quad MixedSolver; advection-diffusion on quads, hexes
     and tri+quads; element-sharded runs (a ShardedSolver TGV and SEM
-    channel, a ShardedMixedSolver tri+quad box); and runs ``python -m
+    channel, a ShardedMixedSolver tri+quad box); a run chunk through the
+    capture seam with a stand-in graph; and runs ``python -m
     hifiles_tpu_torch`` on a tiny deck on the CPU, single-device and with
     ``--devices 2``, with every import of JAX and of the JAX package
     hifiles_tpu refused."""
