@@ -19,7 +19,11 @@ comparison asks for (``graph=False``):
                (bytes moved at 3.35 TB/s, operations at 67 TFLOP/s f32);
                the d = 2 and mixed-block variants timed again with the L2
                flushed before every launch (by a write and by a read of
-               256 MB);
+               256 MB); then the grouped launches the paths issue (GROUPS:
+               the blocks of `mixed` and `mixed3d` and the shards of the
+               sharded cells, one launch each), segment by segment against
+               the plain version, timed beside the same segments launched
+               one at a time;
   4. small   - the port on the card against the port on the CPU (f64, 2
                steps) for `plain` and each feature configuration (4^3 p=3),
                the wall-bounded ones (the channel's small twin, the
@@ -80,8 +84,8 @@ comparison asks for (``graph=False``):
                shards on the card: `plain` in 4 shards, `channel` in 3
                (1,366/1,365/1,365 elements) and `mixed3d` in 4 through
                ShardedMixedSolver, 10 + 10 steps gated on bench.GOLDENS,
-               the volume kernel launched on every shard's blocks at
-               every stage, their rates, captured and eager, beside
+               the volume kernel launched once a stage for all the shards'
+               blocks on the card, their rates, captured and eager, beside
                `plain` from 4 interleaved repeats and their device kernels
                per RK stage;
   7. driver  - `python3 -m hifiles_tpu_torch <deck>` as a subprocess on
@@ -106,9 +110,10 @@ comparison asks for (``graph=False``):
                graph phase's summary, and the card's peak reserved memory
                after each phase.
 The last two lines are the kernel record (each variant at one shape, its
-launches summed over the paths that launch it at that shape, split in
-``launches_by_path``: the shards of the sharded cells are variants of
-their own) and {"ok": true, "device": ...}.
+launches that carried that shape and its segments, summed over the paths
+that launch it, split in ``launches_by_path``: the shards of the sharded
+cells are variants of their own; then each grouped launch, its launches
+and segments) and {"ok": true, "device": ...}.
 The script imports nothing of JAX and nothing of the JAX package.
 """
 
@@ -749,6 +754,46 @@ def blocks_of(s):
                      f"U={b.ops.n_upts}" for b in s._blocks)
 
 
+def k1_per_stage(s):
+    """(launches, segments) of the volume kernel per RK stage of solver
+    ``s``: one grouped launch per card carrying every block of every
+    shard there, or two launches per block with over-integration; none
+    for equation 1 (plain torch)."""
+    blocks = len(s._blocks)
+    if s.p.equation == 1:
+        return 0, 0
+    if s.p.over_int:
+        return 2 * blocks, 2 * blocks
+    return len(set(getattr(s, "devices", [s.device]))), blocks
+
+
+def reset_k1():
+    from hifiles_tpu_torch.solver.volume import reset_counters
+    reset_counters()
+
+
+def read_k1(counts, name):
+    """The volume kernel's counters into ``counts`` under ``name``: by
+    variant (launches), ``:blocks`` by (variant, U, E) (segments) and
+    ``:groups`` by (variant, its segments' shapes) (launches); returns
+    (launches, segments)."""
+    from hifiles_tpu_torch.solver.volume import volume_tdisf as f
+    counts[name] = dict(f.by_variant)
+    counts[name + ":blocks"] = dict(f.by_shape)
+    counts[name + ":groups"] = dict(f.by_group)
+    return f.launches, f.segments
+
+
+def check_k1(name, got, s, runs):
+    """At least k1_per_stage(s) launches and segments per RK stage over
+    ``runs`` stages: ``got`` (launches, segments)."""
+    need = tuple(runs * k for k in k1_per_stage(s))
+    if got[0] < need[0] or got[1] < need[1]:
+        raise AssertionError(f"volume_tdisf on {name}: (launches, "
+                             f"segments) {got}, expected >= {need}")
+    return need
+
+
 def cuda_ms_flushed(fn, write, n=N_TIMED, repeats=5):
     """cuda_ms of fn() with the L2 cache flushed before every call: the
     time of n (flush, fn()) pairs less that of n flushes.  A flush writes
@@ -879,35 +924,51 @@ VARIANTS = [
     # (six orientations: nothing compresses)
     dict(name="ns_tet", F=5, prm={}, U=35, E=10368, geos=("full",),
          path="tet"),
-    # the blocks of the mixed meshes, their launches told apart by shape
-    # (volume_tdisf.by_shape): the `mixed` quads (uniform, broadcast
-    # geometry) and tris (two orientations, full geometry), p=4; the
-    # `mixed3d` prisms and tets with Smagorinsky LES (full geometry, SGS
-    # cutoff and wall distance), p=2
-    dict(name="mixed_quad", D=2, F=4, prm={}, U=25, E=4608, path="mixed",
-         per_block=True),
+    # the blocks of the mixed meshes, told apart by shape
+    # (volume_tdisf.by_shape counts each segment): the `mixed` quads
+    # (uniform, broadcast geometry) and tris (two orientations, full
+    # geometry), p=4; the `mixed3d` prisms and tets with Smagorinsky LES
+    # (full geometry, SGS cutoff and wall distance), p=2
+    dict(name="mixed_quad", D=2, F=4, prm={}, U=25, E=4608, path="mixed"),
     dict(name="mixed_tri", D=2, F=4, prm={}, U=15, E=9216, geos=("full",),
-         path="mixed", per_block=True),
+         path="mixed"),
     dict(name="mixed3d_prism", F=5, prm=dict(sgs=0), U=18, E=8192,
-         geos=("full",), path="mixed3d", per_block=True),
+         geos=("full",), path="mixed3d"),
     dict(name="mixed3d_tet", F=5, prm=dict(sgs=0), U=10, E=24576,
-         geos=("full",), path="mixed3d", per_block=True),
+         geos=("full",), path="mixed3d"),
     # the shards of the sharded cells (near-balanced contiguous
-    # partitions), their launches matched by (variant, U, E): `plain` x4's
+    # partitions), matched by (variant, U, E): `plain` x4's
     # 1,024 hexes a shard, through the API and the driver's --devices 4
     # (broadcast geometry); `channel` x3's 1,366 and 1,365 (geometry
     # broadcast, wall distance full); `mixed3d` x4's 2,048 prisms and
     # 6,144 tets (full geometry)
     dict(name="ns_shard", F=5, prm={}, E=1024,
-         path=("plain x4", "driver --devices"), per_block=True),
+         path=("plain x4", "driver --devices")),
     dict(name="smagorinsky_mixed_stride_shard", F=5, prm=dict(sgs=0),
-         E=1366, geos=("mixed",), path="channel x3", per_block=True),
+         E=1366, geos=("mixed",), path="channel x3"),
     dict(name="smagorinsky_mixed_stride_shard_less", F=5, prm=dict(sgs=0),
-         E=1365, geos=("mixed",), path="channel x3", per_block=True),
+         E=1365, geos=("mixed",), path="channel x3"),
     dict(name="mixed3d_prism_shard", F=5, prm=dict(sgs=0), U=18, E=2048,
-         geos=("full",), path="mixed3d x4", per_block=True),
+         geos=("full",), path="mixed3d x4"),
     dict(name="mixed3d_tet_shard", F=5, prm=dict(sgs=0), U=10, E=6144,
-         geos=("full",), path="mixed3d x4", per_block=True),
+         geos=("full",), path="mixed3d x4"),
+]
+# The grouped launches of the main paths: every block of a stage (and
+# every shard on the card) in one launch (volume.volume_tdisf_many), as
+# segments (U, E, geometry) in the order the path issues them; the
+# variant's F, d and parameters as in VARIANTS.
+GROUPS = [
+    dict(name="mixed", D=2, F=4, prm={}, path="mixed",
+         segs=[(25, 4608, "broadcast"), (15, 9216, "full")]),
+    dict(name="mixed3d", F=5, prm=dict(sgs=0), path="mixed3d",
+         segs=[(18, 8192, "full"), (10, 24576, "full")]),
+    dict(name="plain x4", F=5, prm={}, path=("plain x4", "driver --devices"),
+         segs=[(125, 1024, "broadcast")] * 4),
+    dict(name="channel x3", F=5, prm=dict(sgs=0), path="channel x3",
+         segs=[(125, 1366, "mixed"), (125, 1365, "mixed"),
+               (125, 1365, "mixed")]),
+    dict(name="mixed3d x4", F=5, prm=dict(sgs=0), path="mixed3d x4",
+         segs=[(18, 2048, "full"), (10, 6144, "full")] * 4),
 ]
 # a viscous case whose viscous, SGS and SA terms are not lost in the
 # inviscid flux's scale (SGS cutoff delta ~ 1, mu = 0.05)
@@ -976,6 +1037,84 @@ def volume_ops(args):
     return Count.n
 
 
+def geometry_args(prm, geo, u, grad, jg, delta, wdist, extra):
+    """volume_tdisf's arguments with the geometry ``geo``: "full",
+    "broadcast" (jg, delta and wdist one column) or "mixed" (jg and delta
+    one column, wdist full: the channel's launch)."""
+    cut = (lambda t: t[..., :1].contiguous()) if geo != "full" \
+        else (lambda t: t)
+    cut_w = cut if geo != "mixed" else (lambda t: t)
+    return (u, grad if prm.viscous else None, cut(jg), prm, cut(delta),
+            cut_w(wdist), extra)
+
+
+def phase_groups():
+    """Each grouped launch of GROUPS against the plain version, segment by
+    segment (f32 and f64, at KERNEL_TOL); in f32 its time, the plain
+    version's, the same segments launched one at a time, and its bound
+    (the sum of its segments').  Returns {"group <name>": record}."""
+    import dataclasses
+    import torch
+    from hifiles_tpu_torch.solver.volume import (
+        VolumeCall, VolumeParams, variant, volume_tdisf, volume_tdisf_many,
+        volume_tdisf_many_ref, volume_tdisf_ref)
+    dev = torch.device("cuda", 0)
+    base = VolumeParams(**KERNEL_PRM)
+    recs = {}
+    for g in GROUPS:
+        prm = dataclasses.replace(base, **g["prm"])
+        D, F = g.get("D", 3), g["F"]
+        g["key"] = variant(prm, F, False, D)
+        g["shapes"] = tuple(sorted((U, E) for U, E, _ in g["segs"]))
+        for dtype in (torch.float32, torch.float64):
+            args = [geometry_args(prm, geo, *volume_inputs(
+                E, U, F, D, dtype, dev, seed=k)[:5], None)
+                for k, (U, E, geo) in enumerate(g["segs"])]
+            calls = [VolumeCall(*a[:3], *a[4:]) for a in args]
+            outs = volume_tdisf_many(calls, prm)
+            torch.cuda.synchronize()
+            errs, bounds = [], []
+            for a, out in zip(args, outs):
+                ref = volume_tdisf_ref(*a)
+                errs.append((out - ref).abs().max().item())
+                bounds.append(KERNEL_TOL[str(dtype)[6:]]
+                              * max(ref.abs().max().item(), 1.0))
+            line = (f"kernel volume_tdisf[group {g['name']}] ({g['key']}, "
+                    f"{len(calls)} segments (U, E, geometry) {g['segs']}) "
+                    f"{str(dtype)[6:]}: max_abs_err per segment "
+                    f"{[float(f'{e:.3e}') for e in errs]} (bounds "
+                    f"{[float(f'{b:.3e}') for b in bounds]})")
+            if dtype == torch.float32:
+                ms = cuda_ms(lambda: volume_tdisf_many(calls, prm))
+                plain_ms = cuda_ms(lambda: volume_tdisf_many_ref(calls,
+                                                                 prm))
+                separate_ms = cuda_ms(
+                    lambda: [volume_tdisf(*a) for a in args])
+                nbytes = sum(volume_bytes(*a) for a in args)
+                ops = sum(volume_ops(a) for a in args)
+                bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                ops_ms = ops / F32_OPS_PER_S * 1e3
+                line += (f" one launch {ms:.4f} ms, the segments launched "
+                         f"one at a time {separate_ms:.4f} ms, plain "
+                         f"{plain_ms:.4f} ms; moves {nbytes / 1e6:.3f} MB "
+                         f"(bound {bytes_ms:.4f} ms at 3.35 TB/s, share "
+                         f"{bytes_ms / ms:.3f}), {ops / 1e6:.1f} M ops "
+                         f"(bound {ops_ms:.4f} ms at 67 TFLOP/s)")
+                recs["group " + g["name"]] = dict(
+                    max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                    bound_ms=max(bytes_ms, ops_ms),
+                    bound_by="bytes" if bytes_ms >= ops_ms
+                    else "operations", library_ms=None,
+                    separate_ms=separate_ms)
+            log(line)
+            if not all(e <= b for e, b in zip(errs, bounds)):
+                raise AssertionError(f"volume_tdisf[group {g['name']}] "
+                                     f"disagrees with its plain version: "
+                                     f"{errs} > {bounds}")
+            del args, calls, outs
+    return recs
+
+
 def phase_kernel():
     """Each variant of volume_tdisf against volume_tdisf_ref on the card;
     returns {name: record} with the f32 error and the kernel's and plain
@@ -998,11 +1137,8 @@ def phase_kernel():
                 E, U, v["F"], D, dtype, dev)
             extra = extra if v.get("extra") else None
             for geo in geos:
-                cut = (lambda t: t[..., :1].contiguous()) \
-                    if geo != "full" else (lambda t: t)
-                cut_w = cut if geo != "mixed" else (lambda t: t)
-                args = (u, grad if prm.viscous else None, cut(jg_full), prm,
-                        cut(delta_f), cut_w(wdist_f), extra)
+                args = geometry_args(prm, geo, u, grad, jg_full, delta_f,
+                                     wdist_f, extra)
                 out = volume_tdisf(*args)
                 ref = volume_tdisf_ref(*args)
                 torch.cuda.synchronize()
@@ -1238,7 +1374,6 @@ def phase_slice(card, name, counts):
     import numpy as np
     import torch
     from hifiles_tpu_torch.solver.turb_inlet import ReplayDraws
-    from hifiles_tpu_torch.solver.volume import volume_tdisf
     p, mesh = slice_case(name)
     t0 = time.perf_counter()
     s = make_solver(p, mesh, name, "cuda", torch.float32)
@@ -1250,18 +1385,14 @@ def phase_slice(card, name, counts):
     log(f"slice {name}: setup {time.perf_counter() - t0:.2f} s "
         f"({blocks_of(s)}, F={s.n_fields}, d={s.n_dims}, DOF {dof})")
 
-    volume_tdisf.launches = 0
-    volume_tdisf.by_variant.clear()
-    volume_tdisf.by_shape.clear()
+    reset_k1()
     held = captured_run(s, 10, p.dt)
     t0 = time.perf_counter()
     s.run(10, dt=p.dt)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     row = s.residual_norm(1)
-    launches = volume_tdisf.launches
-    counts[name] = dict(volume_tdisf.by_variant)
-    counts[name + ":blocks"] = dict(volume_tdisf.by_shape)
+    k1 = read_k1(counts, name)
     log(f"slice {name}: run path {s.run_path!r}, capture "
         f"{s.capture_seconds:.3f} s, the graph holds {held / 2**20:.1f} MiB")
 
@@ -1273,9 +1404,9 @@ def phase_slice(card, name, counts):
         f"(gate {rtol})")
     log(f"slice {name} rate {dof * s.n_stages * 10 / wall:.6e} "
         f"DOF*RK-stage/s over 10 steps ({wall:.4f} s) on [{card}]")
-    log(f"slice {name} launches {launches} {counts[name]}; by block "
-        + ", ".join(f"U={U} E={E}: {n}" for (_, U, E), n in
-                    counts[name + ":blocks"].items()))
+    log(f"slice {name} launches {k1[0]} {counts[name]}, segments {k1[1]}; "
+        "by block " + ", ".join(f"U={U} E={E}: {n}" for (_, U, E), n in
+                                counts[name + ":blocks"].items()))
     if not (np.isfinite(row).all() and np.all(rel < rtol)):
         raise AssertionError(f"{name} residual row off the golden: {row}")
     if name == "advdiff":
@@ -1296,18 +1427,13 @@ def phase_slice(card, name, counts):
             raise AssertionError(f"advdiff error rows off the golden: {err}")
     # every block's volume stage on every RK stage of the 20 steps, and
     # the monitor's (equation 1's scalar volume flux is plain torch)
-    need = 0 if name == "advdiff" else (
-        (10 * 2 * s.n_stages + 1) * len(s._blocks)
-        * (2 if name == "overint" else 1))
-    if launches < need:
-        raise AssertionError(f"volume_tdisf launched {launches} times on "
-                             f"the {name} slice, expected >= {need}")
+    need = check_k1(name, k1, s, 10 * 2 * s.n_stages + 1)
     if name == "sem":
         wale = next(v["key"] for v in VARIANTS if v["name"] == "wale")
-        if counts[name].get(wale, 0) < need:
+        if counts[name].get(wale, 0) < need[0]:
             raise AssertionError(f"volume_tdisf[wale] launched "
                                  f"{counts[name].get(wale, 0)} times on the "
-                                 f"sem slice, expected >= {need}")
+                                 f"sem slice, expected >= {need[0]}")
     else:
         # `sem`'s replayed draws end at step 20: phase_sem holds its graph
         GRAPHS[name] = graph_vs_eager(card, name, s, p.dt)
@@ -1368,7 +1494,6 @@ def phase_channel(card, counts):
     import torch
     import bench
     from hifiles_tpu_torch import Solver, channel_hex_mesh
-    from hifiles_tpu_torch.solver.volume import volume_tdisf
     p = channel_input(order=4)
     mesh = channel_hex_mesh(16, 16, 16)
     t0 = time.perf_counter()
@@ -1378,16 +1503,14 @@ def phase_channel(card, counts):
         f"(E={s.block.n_eles}, U={s.ops.n_upts}, F={s.n_fields}, "
         f"boundary faces {s.block.bdy_bcid.size})")
 
-    volume_tdisf.launches = 0
-    volume_tdisf.by_variant.clear()
+    reset_k1()
     held = captured_run(s, 10, p.dt)
     t0 = time.perf_counter()
     s.run(10, dt=p.dt)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     row = s.residual_norm(1)
-    launches = volume_tdisf.launches
-    counts["channel"] = dict(volume_tdisf.by_variant)
+    launches, _ = read_k1(counts, "channel")
     log(f"slice channel: run path {s.run_path!r}, capture "
         f"{s.capture_seconds:.3f} s, the graph holds {held / 2**20:.1f} MiB")
 
@@ -1785,10 +1908,11 @@ def phase_sharded_small(counts):
             draws = numpy_draws(one.turb_inlet, 2)
             for s in (gpu, cpu, one):
                 s.set_inlet_draws(ReplayDraws(draws, s.device, s.dtype))
-        volume_tdisf.by_variant.clear()
+        reset_k1()
         gpu.run(2, dt=p.dt)
         torch.cuda.synchronize()
         run_counts = dict(volume_tdisf.by_variant)
+        k1 = (volume_tdisf.launches, volume_tdisf.segments)
         if not gpu.run_path.endswith("captured"):
             raise AssertionError(f"sharded {name}: run path "
                                  f"{gpu.run_path!r}")
@@ -1799,18 +1923,19 @@ def phase_sharded_small(counts):
         scale = max(np.abs(uc).max(), 1.0)
         e_cpu = np.abs(ug - uc).max() / scale
         e_one = np.abs(ug - u1).max() / scale
-        need = 2 * one.n_stages * len(gpu._blocks)
+        need = tuple(2 * gpu.n_stages * k for k in k1_per_stage(gpu))
         log(f"sharded small {name} f64 {type_names(mesh)} E={mesh.n_cells} "
             f"p={p.order}, shard sizes "
             f"{[sum(E for _, E in sh) for sh in gpu._shard_shapes]}: card vs "
             f"CPU shards {e_cpu:.3e}, vs the card's single-device solver "
             f"{e_one:.3e} (of max(scale, 1), bound 1e-11); launches "
-            f"{run_counts}")
+            f"{run_counts}, segments {k1[1]}")
         if not (np.isfinite(ug).all() and e_cpu <= 1e-11 and e_one <= 1e-11
-                and sum(run_counts.values()) >= need):
+                and k1[0] >= need[0] and k1[1] >= need[1]):
             raise AssertionError(f"sharded {name}: card shards disagree with "
                                  "the CPU or the single-device run, or "
-                                 f"volume_tdisf ran < {need} times")
+                                 f"volume_tdisf's (launches, segments) "
+                                 f"{k1} < {need}")
         counts["sharded " + name] = run_counts
 
 
@@ -1818,8 +1943,8 @@ def phase_sharded(card, counts, plain):
     """The sharded cells of SHARDED_SLICES at full width, f32, all shards
     on the one card, through the API: 10 + 10 steps each, gated row by
     row as the single-device slice is (`channel` row 3 at 0.25); the
-    volume kernel launched on every shard's every block at every RK stage
-    (shards x blocks x stages, and the monitor's), counted per replay;
+    volume kernel launched once at every RK stage (and the monitor's),
+    carrying every shard's every block, counted per replay;
     each cell's graph against its eager step (graph_vs_eager); then their
     rates, captured and eager, beside single-device `plain` (``plain``:
     its solver and deck) in SHARDED_REPEATS interleaved repeats, and
@@ -1832,7 +1957,6 @@ def phase_sharded(card, counts, plain):
     launch counts by variant and by block shape in ``counts``."""
     import numpy as np
     import torch
-    from hifiles_tpu_torch.solver.volume import volume_tdisf
     runs = {"plain": plain}
     for cell, (name, n) in SHARDED_SLICES.items():
         p, mesh = slice_case(name)
@@ -1844,18 +1968,14 @@ def phase_sharded(card, counts, plain):
         log(f"sharded {cell}: setup {time.perf_counter() - t0:.2f} s "
             f"({blocks_of(s)}; DOF {s.dof}; halo points per shard "
             f"{[t.slot_h.size for t in s.soa_tables]})")
-        volume_tdisf.launches = 0
-        volume_tdisf.by_variant.clear()
-        volume_tdisf.by_shape.clear()
+        reset_k1()
         held = captured_run(s, 10, p.dt)
         t0 = time.perf_counter()
         s.run(10, dt=p.dt)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         row = s.residual_norm(1)
-        launches = volume_tdisf.launches
-        counts[cell] = dict(volume_tdisf.by_variant)
-        counts[cell + ":blocks"] = dict(volume_tdisf.by_shape)
+        k1 = read_k1(counts, cell)
         log(f"sharded {cell}: run path {s.run_path!r}, capture "
             f"{s.capture_seconds:.3f} s, the graph holds "
             f"{held / 2**20:.1f} MiB")
@@ -1863,22 +1983,20 @@ def phase_sharded(card, counts, plain):
         if name == "channel":
             rtol = CHANNEL_RTOL
         rel = np.abs(row - gold) / np.abs(gold)
-        need = (10 * 2 * s.n_stages + 1) * len(s._blocks)
         log(f"sharded {cell} residual row "
             f"[{', '.join(f'{v:.12e}' for v in row)}]; rel err per row "
             f"{[float(f'{r:.3e}') for r in rel]} (gate {rtol})")
+        need = check_k1(cell, k1, s, 10 * 2 * s.n_stages + 1)
         log(f"sharded {cell} rate {s.dof * s.n_stages * 10 / wall:.6e} "
             f"DOF*RK-stage/s over 10 steps ({wall:.4f} s); volume_tdisf "
-            f"launches {launches} (shards x blocks x (stages + monitor) = "
-            f"{need}) {counts[cell]}; by block "
+            f"launches {k1[0]}, segments {k1[1]} (stages + monitor, one "
+            f"launch a stage carrying shards x blocks: {need}) "
+            f"{counts[cell]}; by block "
             + ", ".join(f"U={U} E={E}: {k}" for (_, U, E), k in
                         counts[cell + ":blocks"].items()) + f"; on [{card}]")
         if not (np.isfinite(row).all() and np.all(rel < rtol)):
             raise AssertionError(f"sharded {cell} residual row off the "
                                  f"golden: {row}")
-        if launches < need:
-            raise AssertionError(f"volume_tdisf launched {launches} times "
-                                 f"on sharded {cell}, expected >= {need}")
         GRAPHS[cell] = graph_vs_eager(card, cell, s, p.dt)
         if name == "channel":
             s.restore(ic)
@@ -1958,8 +2076,14 @@ def phase_driver_sharded(card, counts, rows_one):
     counts["driver --devices"] = launches
     counts["driver --devices:blocks"] = {
         (key, U, E): k for key, U, E, k in json.loads(re.search(
-            r"^volume_tdisf launches by shape: (.*)$", out, re.M).group(1))}
-    need = DRIVER_SHARDS * 20 * 5
+            r"^volume_tdisf segments by shape: (.*)$", out, re.M).group(1))}
+    counts["driver --devices:groups"] = {
+        (key, tuple(map(tuple, shapes))): k
+        for key, shapes, k in json.loads(re.search(
+            r"^volume_tdisf launches by group: (.*)$", out, re.M).group(1))}
+    segments = sum(counts["driver --devices:blocks"].values())
+    # one launch a stage carrying the shards, 20 steps of 5 stages
+    need = 20 * 5
     with open(os.path.join(d4, "torch_trace")) as f:
         events = json.load(f)["traceEvents"]
     n_dev = sum(1 for e in events if e.get("cat") in ("kernel", "gpu_memcpy",
@@ -1968,14 +2092,17 @@ def phase_driver_sharded(card, counts, rows_one):
         f"steps 11-20 {wall['steps']:.4f} s, "
         f"{wall['steps'] / 50 * 1e3:.4f} ms per RK stage; set-up "
         f"{wall['solver set-up']:.3f} s; volume_tdisf launches {launches} "
-        f"(>= shards x stages = {need}), by (variant, U, E) "
+        f"(>= stages = {need}), segments {segments} (>= shards x stages = "
+        f"{DRIVER_SHARDS * need}), by (variant, U, E) "
         f"{counts['driver --devices:blocks']}; {n_dev / 50:.1f} device "
         f"kernels per RK stage in its profiled second chunk (replays); on "
         f"[{card}]")
-    if launches.get(ns_key, 0) < need:
+    if launches.get(ns_key, 0) < need or segments < DRIVER_SHARDS * need:
         raise AssertionError(f"volume_tdisf[ns] launched "
-                             f"{launches.get(ns_key, 0)} times by the "
-                             f"sharded driver, expected >= {need}")
+                             f"{launches.get(ns_key, 0)} times carrying "
+                             f"{segments} segments by the sharded driver, "
+                             f"expected >= {need} and "
+                             f"{DRIVER_SHARDS * need}")
 
 
 def phase_diagnostics(card):
@@ -2126,12 +2253,31 @@ def phase_diagnostics(card):
         f"{zones[0]['fields']}")
 
 
+def path_launches(counts, path, v):
+    """(launches, segments) of kernel-record row ``v`` (a VARIANTS or a
+    GROUPS entry) on the run of ``path``: for a group, the launches of
+    its table; for a variant at one shape, the launches that carried that
+    shape and its segments; on a run that kept only counts by variant,
+    its launches of the variant, one segment each."""
+    if "segs" in v:
+        k = counts[path + ":groups"].get((v["key"], v["shapes"]), 0)
+        return k, k * len(v["segs"])
+    if path + ":blocks" not in counts:
+        k = counts[path].get(v["key"], 0)
+        return k, k
+    U, E = v.get("U", 125), v.get("E", 4096)
+    k = sum(n for (key, shapes), n in counts[path + ":groups"].items()
+            if key == v["key"] and (U, E) in shapes)
+    return k, counts[path + ":blocks"].get((v["key"], U, E), 0)
+
+
 def main():
     t0 = time.perf_counter()
     card = phase_device()
     sys.path.insert(0, ROOT)
     phase_build()
     recs = phase_kernel()
+    recs.update(phase_groups())
     counts = {}
     log_memory("the kernel phase")
     phase_small(counts)
@@ -2168,26 +2314,28 @@ def main():
         raise AssertionError(f"chip_smoke imported {sorted(loaded)[:5]}")
     import torch
     kernels = []
-    for v in VARIANTS:
+    for v in VARIANTS + GROUPS:
         paths = v["path"] if isinstance(v["path"], tuple) else (v["path"],)
-        shape = (v["key"], v.get("U", 125), v.get("E", 4096))
-        by_path = {path: (counts[path + ":blocks"].get(shape, 0)
-                          if v.get("per_block")
-                          else counts[path].get(v["key"], 0))
-                   for path in paths}
-        for path, k in by_path.items():
+        grouped = "segs" in v
+        name = f"group {v['name']}" if grouped else v["name"]
+        by_path = {path: path_launches(counts, path, v) for path in paths}
+        for path, (k, _) in by_path.items():
             if k == 0:
-                raise AssertionError(f"volume_tdisf[{v['name']}] "
-                                     f"({v['key']}) not launched on the "
-                                     f"{path} run")
+                raise AssertionError(f"volume_tdisf[{name}] ({v['key']}) "
+                                     f"not launched on the {path} run")
+        shape = (dict(segments=[dict(U=U, E=E, geometry=geo)
+                                for U, E, geo in v["segs"]]) if grouped
+                 else dict(U=v.get("U", 125), E=v.get("E", 4096)))
         kernels.append(dict(
-            name=f"volume_tdisf[{v['name']}]", dims=v.get("D", 3),
+            name=f"volume_tdisf[{name}]", dims=v.get("D", 3),
             route="cuda",
             source="hifiles_tpu_torch/csrc/volume_tdisf.cu",
             replaces="hifiles_tpu/solver/pallas_kernels.py:101",
-            shape=dict(U=shape[1], E=shape[2]),
-            launches=sum(by_path.values()), launches_by_path=by_path,
-            **recs[v["name"]]))
+            shape=shape,
+            launches=sum(k for k, _ in by_path.values()),
+            segments=sum(n for _, n in by_path.values()),
+            launches_by_path={p: k for p, (k, _) in by_path.items()},
+            **recs[name]))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

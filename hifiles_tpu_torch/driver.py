@@ -286,8 +286,11 @@ def main(argv=None):
 
     print("volume_tdisf launches: "
           + json.dumps(dict(volume_tdisf.by_variant)))
-    print("volume_tdisf launches by shape: "
+    print("volume_tdisf segments by shape: "
           + json.dumps([[*k, n] for k, n in volume_tdisf.by_shape.items()]))
+    print("volume_tdisf launches by group: "
+          + json.dumps([[key, shapes, n] for (key, shapes), n in
+                        volume_tdisf.by_group.items()]))
     print("wall seconds: " + json.dumps(dict(wall)))
     print(f"total wall time {time.time() - t_start:.1f}s")
     return 0

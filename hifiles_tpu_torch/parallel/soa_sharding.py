@@ -10,7 +10,9 @@ tables beside the interior and boundary faces: each side evaluates it
 one-sided, its own side as L with its own outward normal, as the
 reference's mpi_inters does.  The face stage of every shard stops at the
 two halo exchanges (residual_soa.make_face_residual's ``stages``): the
-flux-point states, then the element-side normal viscous flux qn.  A shard
+flux-point states, then the element-side normal viscous flux qn; and
+once at its volume stage, where the controller launches the volume
+kernel once per card for the blocks of all its shards.  A shard
 receives from shard ``(s - o) % n`` for each ring offset ``o``, each
 buffer moved with ``Tensor.to(device, non_blocking=True)``, which is the
 tensor itself when both shards share a device; so N shards on one card
@@ -31,6 +33,7 @@ from ..solver.residual_soa import (BlockStages, FaceArrays, Physics,
                                    check_coverage, make_face_residual,
                                    orient_faces)
 from ..solver.solver import BlockLoop
+from ..solver.volume import VolumeRequest, volume_tdisf_groups
 
 
 def shard_faces(conn, n, side, pf_flat, gslots):
@@ -222,8 +225,9 @@ class ShardState:
 
 
 def _advance(gen, recv):
-    """The next send buffer of a shard's residual ``gen`` after it takes
-    the receive buffer ``recv``, or None once its residual is done."""
+    """The next message of a shard's residual ``gen`` (a send buffer or
+    a volume request) after it takes ``recv`` (the receive buffer or the
+    volume outputs), or None once its residual is done."""
     try:
         return gen.send(recv)
     except StopIteration:
@@ -312,7 +316,8 @@ class ShardedLoop(BlockLoop):
 
     def _shard_rhs(self, u, ramp, fluc=None):
         """The right-hand side of ShardState ``u``: every shard's residual
-        run to its next halo exchange, the exchange, and so on to the end.
+        run to its next halo exchange or volume request, the exchange or
+        the shards' grouped volume launches, and so on to the end.
         ``ramp``, a 0-d tensor on the controller's device, and ``fluc``
         (``_shard_fluc``; only a single-type run has an inlet) reach each
         shard on its device."""
@@ -324,10 +329,14 @@ class ShardedLoop(BlockLoop):
                 self._part_views(u, s), fl,
                 None if ramp is None else ramp.to(dev),
                 out=self._part_views(out, s)))
-        bufs = [next(g) for g in gens]
-        while bufs[0] is not None:
-            recv = self._exchange(bufs)
-            bufs = [_advance(g, r) for g, r in zip(gens, recv)]
+        msgs = [next(g) for g in gens]
+        while msgs[0] is not None:
+            if isinstance(msgs[0], VolumeRequest):
+                # every shard's volume stage, one launch per card
+                recv = volume_tdisf_groups(msgs)
+            else:
+                recv = self._exchange(msgs)
+            msgs = [_advance(g, r) for g, r in zip(gens, recv)]
         return out
 
     # ------------------------------------------------------------------

@@ -1,14 +1,19 @@
 """Volume stage of the FR residual: fluxes + adjugate transform per point.
 
-``volume_tdisf`` is the port of the JAX package's one Pallas kernel,
+``volume_tdisf_many`` is the port of the JAX package's one Pallas kernel,
 hifiles_tpu/solver/pallas_kernels.py::volume_tdisf_fm, written by hand in
-CUDA C++ (csrc/volume_tdisf.cu) and extended to the volume stage of every
+CUDA C++ (csrc/volume_tdisf.cu, the per-point work in
+csrc/volume_point.cuh) and extended to the volume stage of every
 configuration the port runs (residual_soa.py:1094-1139 of the JAX
 package) at d = 2 and d = 3: SA-RANS (F = d + 3), Sutherland viscosity,
 the eddy-viscosity SGS flux (Smagorinsky or WALE), an added physical flux
 (the similarity SGS flux), and the inviscid part on or off (the
 over-integration path launches it once at the cubature points, inviscid
-only, and once at the solution points, viscous only).
+only, and once at the solution points, viscous only).  One launch takes
+the blocks of several element types and shards of one variant on one
+card (up to MAX_SEGMENTS); ``volume_tdisf`` is the one-block case and
+``volume_tdisf_groups`` gathers the volume requests of several shards'
+residuals by device and variant.
 ``volume_tdisf_ref`` is the same algebra in torch ops, composed from the
 plane functions below: the CPU path and the reference the kernel is held
 against.
@@ -25,6 +30,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import dataclasses
+from typing import List, NamedTuple, Optional
 
 import torch
 
@@ -303,26 +309,77 @@ def _check(u, grad, jg, prm, delta, wdist, extra):
         raise ValueError(f"unsupported dtype {u.dtype}")
 
 
+MAX_SEGMENTS = 16       # kMaxSegments of csrc/volume_point.cuh
+
+
+class VolumeCall(NamedTuple):
+    """The operands of one block's volume stage (as volume_tdisf_ref's)."""
+    u: torch.Tensor
+    grad: Optional[torch.Tensor]
+    jg: torch.Tensor
+    delta: Optional[torch.Tensor] = None
+    wdist: Optional[torch.Tensor] = None
+    extra: Optional[torch.Tensor] = None
+
+
+@dataclasses.dataclass
+class VolumeRequest:
+    """What a residual's stage generator yields at its volume stage: its
+    blocks' calls, all of one VolumeParams; it takes back their outputs
+    in the same order."""
+    calls: List[VolumeCall]
+    prm: VolumeParams
+
+
 class _Args(ctypes.Structure):
-    """HftVolumeArgs of csrc/volume_tdisf.cu: shapes, strides and scalar
-    parameters of one launch."""
-    _fields_ = [(n, ctypes.c_int64) for n in (
-        "n_upts", "n_eles", "n_fields", "n_dims", "jg_stride", "delta_stride",
-        "wdist_stride")] + [(n, ctypes.c_double) for n in (
+    """HftVolumeArgs of csrc/volume_point.cuh: the physics of one launch."""
+    _fields_ = [(n, ctypes.c_int32) for n in ("n_fields", "n_dims")] + [
+        (n, ctypes.c_double) for n in (
             "gamma", "prandtl", "prandtl_t", "mu_inf", "rt_inf", "c_sth",
-            "c_v1", "omega", "C_s", "kappa")] + [(n, ctypes.c_int32) for n in (
-                "viscous", "inviscid", "sutherland", "sgs")]
+            "c_v1", "omega", "C_s", "kappa")] + [
+        (n, ctypes.c_int32) for n in (
+            "viscous", "inviscid", "sutherland", "sgs", "has_extra")]
 
 
-def _entry(dtype):
-    name = ("hft_volume_tdisf_f32" if dtype == torch.float32
-            else "hft_volume_tdisf_f64")
-    fn = getattr(backend.kernel_library(), name)
-    # (u, grad, jg, delta, wdist, extra, out, args, device, stream)
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.POINTER(_Args),
-                                           ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+class _Segment(ctypes.Structure):
+    """HftVolumeSegment of csrc/volume_point.cuh: one block of a launch
+    (the library numbers its tiles)."""
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "u", "grad", "jg", "delta", "wdist", "extra", "out")] + [
+        (n, ctypes.c_int32) for n in (
+            "n_upts", "n_eles", "jg_stride", "delta_stride", "wdist_stride",
+            "first_tile", "tiles_per_row", "bulk")]
+
+
+def bind_entries(lib):
+    """Set the argument types of the library's C entries (the CUDA one, or
+    a host build of the same interface) and return it."""
+    for name in ("hft_volume_tdisf_f32", "hft_volume_tdisf_f64"):
+        fn = getattr(lib, name)
+        # (segments, n_segments, args, device, stream)
+        fn.argtypes = [ctypes.POINTER(_Segment), ctypes.c_int,
+                       ctypes.POINTER(_Args), ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+_prepared = set()
+
+
+def _library(device):
+    """The kernel library, prepared for ``device`` (its shared-memory
+    limits and occupancy set once, at its first launch there)."""
+    lib = backend.kernel_library()
+    if device.index not in _prepared:
+        bind_entries(lib)
+        lib.hft_volume_prepare.argtypes = [ctypes.c_int]
+        lib.hft_volume_prepare.restype = ctypes.c_int
+        rc = lib.hft_volume_prepare(device.index)
+        if rc != 0:
+            raise RuntimeError(f"volume_tdisf: preparing the kernels on "
+                               f"{device} failed: CUDA error {rc}")
+        _prepared.add(device.index)
+    return lib
 
 
 def variant(prm: VolumeParams, n_fields: int, has_extra: bool,
@@ -342,72 +399,191 @@ def variant(prm: VolumeParams, n_fields: int, has_extra: bool,
     return "+".join(parts)
 
 
+def call_variant(call: VolumeCall, prm: VolumeParams) -> str:
+    return variant(prm, call.u.shape[1], call.extra is not None,
+                   call.jg.shape[0])
+
+
+def _check_group(calls, prm):
+    """Each call as volume_tdisf checks it, and all of one launch: one
+    device, dtype and variant (d, F, the added flux)."""
+    if not calls:
+        raise ValueError("volume_tdisf_many: no calls")
+    for c in calls:
+        _check(c.u, c.grad, c.jg, prm, c.delta, c.wdist, c.extra)
+    first = calls[0]
+    key = call_variant(first, prm)
+    for c in calls[1:]:
+        if c.u.device != first.u.device or c.u.dtype != first.u.dtype:
+            raise ValueError("volume_tdisf_many: calls on different devices "
+                             "or dtypes")
+        if call_variant(c, prm) != key:
+            raise ValueError(f"volume_tdisf_many: calls of different "
+                             f"variants ({key}, {call_variant(c, prm)})")
+
+
+def args_of(prm: VolumeParams, n_fields, n_dims, has_extra) -> _Args:
+    return _Args(
+        n_fields=n_fields, n_dims=n_dims, gamma=prm.gamma,
+        prandtl=prm.prandtl, prandtl_t=prm.prandtl_t, mu_inf=prm.mu,
+        rt_inf=prm.rt_inf, c_sth=prm.c_sth, c_v1=prm.c_v1, omega=prm.omega,
+        C_s=prm.C_s, kappa=prm.kappa, viscous=int(bool(prm.viscous)),
+        inviscid=int(bool(prm.inviscid)), sutherland=int(not prm.fix_vis),
+        sgs=prm.sgs if prm.viscous else SGS_NONE,
+        has_extra=int(has_extra))
+
+
+def segments_of(calls, prm: VolumeParams, outs):
+    """The segment table of one launch: each call's pointers (grad only
+    when viscous, delta and wdist only with an SGS model), U, E and the
+    element strides (0 for a broadcast column)."""
+    sgs = prm.viscous and prm.sgs != SGS_NONE
+    table = (_Segment * len(calls))()
+    for seg, c, out in zip(table, calls, outs):
+        U, _, E = c.u.shape
+        stride = lambda t: int(t is not None and t.shape[-1] == E and E > 1)
+        ptr = lambda t: None if t is None else t.data_ptr()
+        seg.u, seg.jg, seg.extra, seg.out = (ptr(c.u), ptr(c.jg),
+                                             ptr(c.extra), ptr(out))
+        seg.grad = ptr(c.grad) if prm.viscous else None
+        seg.delta = ptr(c.delta) if sgs else None
+        seg.wdist = ptr(c.wdist) if sgs else None
+        seg.n_upts, seg.n_eles = U, E
+        seg.jg_stride = stride(c.jg)
+        seg.delta_stride = stride(c.delta) if sgs else 0
+        seg.wdist_stride = stride(c.wdist) if sgs else 0
+    return table
+
+
+def launch_segments(entry, calls, prm: VolumeParams, outs, device_index,
+                    stream):
+    """Launches of ``entry`` (a C entry of the library's interface) over
+    ``calls``, MAX_SEGMENTS at a time, writing ``outs``, each counted on
+    volume_tdisf's counters; raises on an error code.  Returns the calls
+    of each launch."""
+    c = calls[0]
+    args = args_of(prm, c.u.shape[1], c.jg.shape[0], c.extra is not None)
+    key = call_variant(c, prm)
+    f = volume_tdisf
+    parts = []
+    for a in range(0, len(calls), MAX_SEGMENTS):
+        part = calls[a:a + MAX_SEGMENTS]
+        table = segments_of(part, prm, outs[a:a + MAX_SEGMENTS])
+        rc = entry(table, len(part), ctypes.byref(args), device_index,
+                   stream)
+        if rc != 0:
+            raise RuntimeError(f"volume_tdisf kernel launch failed: CUDA "
+                               f"error {rc}")
+        shapes = [(x.u.shape[0], x.u.shape[2]) for x in part]
+        f.launches += 1
+        f.segments += len(part)
+        f.by_variant[key] += 1
+        f.by_shape.update((key, U, E) for U, E in shapes)
+        f.by_group[(key, tuple(sorted(shapes)))] += 1
+        parts.append(part)
+    return parts
+
+
+def volume_tdisf_many_ref(calls, prm: VolumeParams):
+    """Plain version of volume_tdisf_many: volume_tdisf_ref per call."""
+    return [volume_tdisf_ref(c.u, c.grad, c.jg, prm, c.delta, c.wdist,
+                             c.extra) for c in calls]
+
+
+def volume_tdisf_many(calls, prm: VolumeParams):
+    """The volume stage of several blocks (VolumeCall each) of one variant
+    on one device: one kernel launch for up to MAX_SEGMENTS of them, the
+    plain version for CPU tensors.  Returns their outputs in order.
+    Raises on calls of different devices, dtypes or variants.
+
+    The counters sit on ``volume_tdisf``: ``launches`` and ``by_variant``
+    count launches, ``segments`` and ``by_shape`` (variant, U, E) the
+    blocks they carried, ``by_group`` (variant, sorted (U, E) of its
+    segments) the launches by their table (CPU calls do not count).  A
+    launch recorded into a CUDA graph counts once per replay of the graph
+    (``captured_launches``, ``count_replay``)."""
+    calls = [VolumeCall(*c) for c in calls]
+    _check_group(calls, prm)
+    dev = calls[0].u.device
+    if dev.type == "cpu":
+        return volume_tdisf_many_ref(calls, prm)
+    if dev.type != "cuda":
+        raise ValueError(f"volume_tdisf: unsupported device {dev}")
+    lib = _library(dev)
+    entry = (lib.hft_volume_tdisf_f32 if calls[0].u.dtype == torch.float32
+             else lib.hft_volume_tdisf_f64)
+    D = calls[0].jg.shape[0]
+    outs = [torch.empty((D,) + tuple(c.u.shape), device=dev,
+                        dtype=c.u.dtype) for c in calls]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    launch_segments(entry, calls, prm, outs, dev.index, stream)
+    return outs
+
+
 def volume_tdisf(u, grad, jg, prm: VolumeParams, delta=None, wdist=None,
                  extra=None):
-    """Volume stage: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors (arguments as volume_tdisf_ref).
-    ``volume_tdisf.launches`` counts the kernel launches,
-    ``volume_tdisf.by_variant`` splits them by ``variant`` and
-    ``volume_tdisf.by_shape`` by (variant, U, E), which tells apart the
-    blocks of a mixed mesh (CPU calls do not count).  A launch recorded
-    into a CUDA graph counts once per replay of the graph
-    (``captured_launches``, ``count_replay``)."""
-    _check(u, grad, jg, prm, delta, wdist, extra)
-    if u.device.type == "cpu":
-        return volume_tdisf_ref(u, grad, jg, prm, delta, wdist, extra)
-    if u.device.type != "cuda":
-        raise ValueError(f"volume_tdisf: unsupported device {u.device}")
-    U, F, E = u.shape
-    D = jg.shape[0]
-    sgs = prm.sgs if prm.viscous else SGS_NONE
-    stride = lambda t: 1 if t is not None and t.shape[-1] == E and E > 1 \
-        else 0
-    ptr = lambda t: None if t is None else t.data_ptr()
-    args = _Args(
-        n_upts=U, n_eles=E, n_fields=F, n_dims=D, jg_stride=stride(jg),
-        delta_stride=stride(delta), wdist_stride=stride(wdist),
-        gamma=prm.gamma, prandtl=prm.prandtl, prandtl_t=prm.prandtl_t,
-        mu_inf=prm.mu, rt_inf=prm.rt_inf, c_sth=prm.c_sth, c_v1=prm.c_v1,
-        omega=prm.omega, C_s=prm.C_s, kappa=prm.kappa,
-        viscous=int(bool(prm.viscous)), inviscid=int(bool(prm.inviscid)),
-        sutherland=int(not prm.fix_vis), sgs=sgs)
-    out = torch.empty((D, U, F, E), device=u.device, dtype=u.dtype)
-    stream = torch.cuda.current_stream(u.device).cuda_stream
-    rc = _entry(u.dtype)(
-        ptr(u), ptr(grad) if prm.viscous else None, ptr(jg),
-        ptr(delta) if sgs != SGS_NONE else None,
-        ptr(wdist) if sgs != SGS_NONE else None, ptr(extra), ptr(out),
-        ctypes.byref(args), u.device.index, stream)
-    if rc != 0:
-        raise RuntimeError(f"volume_tdisf kernel launch failed: CUDA error "
-                           f"{rc}")
-    key = variant(prm, F, extra is not None, D)
-    volume_tdisf.launches += 1
-    volume_tdisf.by_variant[key] += 1
-    volume_tdisf.by_shape[(key, U, E)] += 1
-    return out
+    """Volume stage of one block: volume_tdisf_many of one call (the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors; arguments
+    as volume_tdisf_ref).  Holds the kernel's counters (see
+    volume_tdisf_many)."""
+    return volume_tdisf_many(
+        [VolumeCall(u, grad, jg, delta, wdist, extra)], prm)[0]
 
 
-volume_tdisf.launches = 0
-volume_tdisf.by_variant = collections.Counter()
-volume_tdisf.by_shape = collections.Counter()
+def volume_tdisf_groups(requests):
+    """The VolumeRequests of several residuals (the shards of a run) ->
+    each one's outputs: their calls gathered by device and variant, one
+    volume_tdisf_many per group."""
+    groups = collections.defaultdict(list)
+    for r, req in enumerate(requests):
+        for i, c in enumerate(req.calls):
+            key = (c.u.device, c.u.dtype, req.prm, call_variant(c, req.prm))
+            groups[key].append((r, i, c))
+    outs = [[None] * len(req.calls) for req in requests]
+    for (_, _, prm, _), members in groups.items():
+        got = volume_tdisf_many([c for _, _, c in members], prm)
+        for (r, i, _), t in zip(members, got):
+            outs[r][i] = t
+    return outs
+
+
+COUNTERS = ("launches", "segments", "by_variant", "by_shape", "by_group")
+
+
+def reset_counters():
+    """Set every counter of the volume kernel to 0."""
+    f = volume_tdisf
+    f.launches = f.segments = 0
+    f.by_variant = collections.Counter()
+    f.by_shape = collections.Counter()
+    f.by_group = collections.Counter()
+
+
+reset_counters()
+
+
+def _counters():
+    f = volume_tdisf
+    return (f.launches, f.segments, collections.Counter(f.by_variant),
+            collections.Counter(f.by_shape), collections.Counter(f.by_group))
 
 
 def captured_launches(capture):
     """Run ``capture()``, which records a step's launches into a CUDA graph
     without running them, and return the counters' increase over it
-    (launches, by_variant, by_shape): the launches of one replay.  The
-    counters go back to what they were, since nothing ran."""
+    (launches, segments, by_variant, by_shape, by_group): the launches of
+    one replay.  The counters go back to what they were, since nothing
+    ran."""
     f = volume_tdisf
-    before = (f.launches, collections.Counter(f.by_variant),
-              collections.Counter(f.by_shape))
+    before = _counters()
     capture()
-    delta = (f.launches - before[0], f.by_variant - before[1],
-             f.by_shape - before[2])
-    f.launches = before[0]
-    for now, was in ((f.by_variant, before[1]), (f.by_shape, before[2])):
-        now.clear()
-        now.update(was)
+    now = _counters()
+    delta = (now[0] - before[0], now[1] - before[1]) + tuple(
+        b - a for a, b in zip(before[2:], now[2:]))
+    f.launches, f.segments = before[:2]
+    for name, was in zip(COUNTERS[2:], before[2:]):
+        getattr(f, name).clear()
+        getattr(f, name).update(was)
     return delta
 
 
@@ -416,5 +592,6 @@ def count_replay(delta):
     counters: the replay launched them, though no host call did."""
     f = volume_tdisf
     f.launches += delta[0]
-    f.by_variant.update(delta[1])
-    f.by_shape.update(delta[2])
+    f.segments += delta[1]
+    for name, d in zip(COUNTERS[2:], delta[2:]):
+        getattr(f, name).update(d)

@@ -27,9 +27,10 @@ mesh of the same kind (the count does not depend on the element count),
 and prints the kernel launches per RK stage the step would make on the
 card: every aten op it dispatches that writes memory (views and empty
 allocations launch nothing), the plain version of the volume kernel
-counted as its one launch.  Otherwise it needs CUDA: per case, first for
-eager steps (``run(..., graph=False)``), then for replays of the captured
-step, it runs 2 untraced steps, then traces N steps (default 2) with
+counted as its launches (one per 16 blocks of a grouped call).
+Otherwise it needs CUDA: per case, first for eager steps
+(``run(..., graph=False)``), then for replays of the captured step, it
+runs 2 untraced steps, then traces N steps (default 2) with
 torch.profiler.  Prints the device time per kernel class (GEMM, the
 hand volume kernel, gathers/stores, other elementwise, the boundary stage:
 every kernel launched inside the boundary functions, and the turbulent
@@ -160,21 +161,21 @@ def count_ops(s, dt):
                 Count.n += 1
             return func(*args, **(kwargs or {}))
 
-    plain = volume.volume_tdisf_ref
+    plain = volume.volume_tdisf_many_ref
 
-    def one_launch(*args, **kwargs):
-        Count.n += 1
+    def one_launch(calls, prm):
+        Count.n += -(-len(calls) // volume.MAX_SEGMENTS)
         Count.on = False
         try:
-            return plain(*args, **kwargs)
+            return plain(calls, prm)
         finally:
             Count.on = True
-    volume.volume_tdisf_ref = one_launch
+    volume.volume_tdisf_many_ref = one_launch
     try:
         with Count():
             s.run(1, dt=dt)
     finally:
-        volume.volume_tdisf_ref = plain
+        volume.volume_tdisf_many_ref = plain
     return Count.n / s.n_stages
 
 

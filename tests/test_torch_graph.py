@@ -112,15 +112,8 @@ class IdentityGraph:
         self.solver.restore(snap)
 
     def replay(self):
-        f = volume.volume_tdisf
-        held = (f.launches, dict(f.by_variant), dict(f.by_shape))
         with no_host_syncs():
-            self.solver._step_body()
-        f.launches = held[0]
-        f.by_variant.clear()
-        f.by_variant.update(held[1])
-        f.by_shape.clear()
-        f.by_shape.update(held[2])
+            volume.captured_launches(self.solver._step_body)
 
     def release(self):
         pass
@@ -329,31 +322,36 @@ def test_new_dt_without_new_capture():
 
 def test_volume_kernel_counted_per_replayed_step(monkeypatch):
     """The volume kernel's counters count the warm-up step once and each
-    replayed step once, as the eager loop counts its steps (a plain
-    version that counts stands in for the card's launches)."""
+    replayed step once, as the eager loop counts its steps: one grouped
+    launch per RK stage, whatever the blocks and shards, carrying every
+    block (a plain version that counts each grouped call as one launch
+    stands in for the card's launches)."""
     f = volume.volume_tdisf
-    plain = volume.volume_tdisf_ref
+    plain = volume.volume_tdisf_many_ref
 
-    def counted(*args, **kwargs):
+    def counted(calls, prm):
         f.launches += 1
+        f.segments += len(calls)
         f.by_variant["cpu"] += 1
-        f.by_shape[("cpu", 0, 0)] += 1
-        return plain(*args, **kwargs)
-    monkeypatch.setattr(volume, "volume_tdisf_ref", counted)
+        f.by_shape.update(("cpu", c.u.shape[0], c.u.shape[2])
+                          for c in calls)
+        return plain(calls, prm)
+    monkeypatch.setattr(volume, "volume_tdisf_many_ref", counted)
     for name, blocks in (("plain", 1), ("mixed_tri_quad", 2),
                          ("tgv_4_shards", 4)):
         counts = []
         for graph in (True, False):
             s, _, dt = build(name)
-            f.launches = 0
-            f.by_variant.clear()
-            f.by_shape.clear()
+            volume.reset_counters()
             s.run(3, dt=dt, graph=graph)
             s.run(2, dt=dt, graph=graph)
-            counts.append((f.launches, dict(f.by_variant),
+            counts.append((f.launches, f.segments, dict(f.by_variant),
                            dict(f.by_shape)))
         assert counts[0] == counts[1]
-        assert counts[0][0] == 5 * s.n_stages * blocks
+        launches, segments, _, by_shape = counts[0]
+        assert launches == 5 * s.n_stages
+        assert segments == sum(by_shape.values()) == 5 * s.n_stages * blocks
+    volume.reset_counters()
 
 
 def test_card_graph_is_the_default():
