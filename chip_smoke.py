@@ -78,7 +78,7 @@ comparison asks for (``graph=False``):
                default device draws, against a laminar-inlet twin, with
                its inlet's mass flux and the inlet update's device time;
                the kernels' launch counts read around each run; the rates
-               of every one of these cells, captured and eager, from 8
+               of every one of these cells, captured and eager, from 6
                interleaved 10-step repeats, and their device kernels per
                RK stage; then the sharded cells, all
                shards on the card: `plain` in 4 shards, `channel` in 3
@@ -106,12 +106,28 @@ comparison asks for (``graph=False``):
                Couette case against the reference binary's error rows,
                and, with h5py, an HDF5 restart round trip and a CGNS
                write;
-  8. checks  - no module of JAX or of the JAX package was imported; the
+  8. long    - the long runs, each on the captured path of the port's
+               Solver: the Sod shock tube (120 x 2 quads, p=2, Euler,
+               HLLC, Persson sensor + filter, 1000 steps to t = 2 ms) in
+               f64 and f32 against the exact solution with the bounds of
+               tests/test_shock_tube.py, the f64 state against the port on
+               the CPU (1e-11), and without shock capture to step 2500
+               (non-finite or a density under 0.105); the forced channel
+               `channel_bf1` (the `channel` deck with body_force_type 1,
+               f32) gated on TORCH_GOLDENS at steps 20 and 100, then to
+               step 1000, finite and its forcing's mass flux within 1e-3
+               of mdot0 after every chunk; the TGV Re=1600 validation run
+               (scripts/validate_torch_tgv.py: 16^3 hexes, p=4, f32) to
+               t = 14, 28,000 steps from one capture, held to the JAX
+               package's dissipation curve (validation/tgv_re1600.json)
+               and to validate_tgv.py's PASS rule on the DNS peak;
+  9. checks  - no module of JAX or of the JAX package was imported; the
                graph phase's summary, and the card's peak reserved memory
-               after each phase.
+               and the wall seconds after each phase.
 The last two lines are the kernel record (each variant at one shape, its
 launches that carried that shape and its segments, summed over the paths
-that launch it, split in ``launches_by_path``: the shards of the sharded
+that launch it, split in ``launches_by_path``, the long runs' paths
+`tgv_re1600`, `sod` and `channel_bf1` among them: the shards of the sharded
 cells are variants of their own; then each grouped launch, its launches
 and segments) and {"ok": true, "device": ...}.
 The script imports nothing of JAX and nothing of the JAX package.
@@ -127,6 +143,8 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# when main() started: log_memory reports the wall seconds since
+T_START = time.perf_counter()
 
 # bench.py's cross-platform gate for rows checked against the CPU golden
 # (bench.GATE_RTOL holds the wider per-configuration entries)
@@ -212,6 +230,20 @@ TORCH_GOLDENS.update({
     "advdiff_error": [5.0933625432293215e-14, 4.0942964632156793e-10],
 })
 SEM_DT = 0.00363610265776515
+# And the forced channel `channel_bf1` (the `channel` deck with
+# body_force_type 1, the deadbeat forcing, set in code): its rows after
+# 10 + 10 and after 100 f32 steps; the JAX run's forcing read
+# |mflux / mdot0 - 1| <= 2.76e-7 after every one of its 100 steps:
+# `JAX_PLATFORMS=cpu python scripts/gen_torch_goldens.py channel_bf1`
+# (2026-10-17).
+TORCH_GOLDENS.update({
+    "channel_bf1": [1.6286548556062864e-02, 7.713223576172137e-01,
+                    1.9819908601247993e-01, 2.0743787212961805e-04,
+                    1.1341651018225012e+00],
+    "channel_bf1_100": [2.67728330698662e-02, 6.186563537280898e-01,
+                        7.353327711785669e-02, 1.9902132424388835e-04,
+                        1.7425662232520513e+00],
+})
 # the `advdiff` slice's time step: the deck's 1e-3 diverges at 16^3 p=4 (the
 # diffusive limit scales as h^2 / (p + 1)^4); 1e-4 keeps the deck's
 # D dt (p + 1)^4 / h^2 of tests/test_adv_diff.py (8^2, p=3) within 2x
@@ -226,7 +258,9 @@ IC_SNAPSHOTS = {}
 GRAPHS = {}
 # bench.py's mixed-mesh cases, through MixedSolver, gated on bench.GOLDENS
 MIXED_SLICES = ["mixed", "mixed3d"]
-N_RATE_REPEATS = 8
+# interleaved 10-step repeats of each cell's rate: 6 leave the long runs
+# room in the time limit
+N_RATE_REPEATS = 6
 # the sharded cells (parallel.ShardedSolver / ShardedMixedSolver, all
 # shards on the one card): name -> (slice, shards); their rates are taken
 # beside `plain` in SHARDED_REPEATS interleaved repeats
@@ -249,6 +283,19 @@ SMALL = {"plain": {}, "smag": {}, "overint": {}, "rans": {}, "shock": {},
          "wale": dict(LES=1, SGS_model=1, C_s=0.1),
          "similarity": dict(LES=1, SGS_model=4, C_s=0.1),
          "sutherland": dict(fix_vis=0)}
+# The long runs (phase 8): the TGV Re=1600 validation run to t = 14
+# (scripts/validate_torch_tgv.py's validate, 28,000 captured steps, 300 s on
+# an H100); the Sod shock tube to t = 2 ms (1000 steps) and without shock capture to 2500 steps;
+# the forced channel `channel_bf1` to step 1000, its rows gated at steps 20
+# (CHANNEL_RTOL) and 100 (CHANNEL_BF1_RTOL_100: bench's `overint` entry,
+# 0.25 on row 3 as CHANNEL_RTOL), its forcing's own mass flux within
+# MFLUX_BOUND of mdot0 after every chunk (twice the JAX CPU run's worst
+# reading would replace it had that read above 5e-4; it read 2.76e-7)
+SOD_STEPS = 1000
+SOD_NO_CAPTURE_STEPS = 2500
+CHANNEL_BF1_STEPS = 1000
+CHANNEL_BF1_RTOL_100 = [2e-2, 2e-2, 2e-2, 0.25, 2e-2]
+MFLUX_BOUND = 1e-3
 
 
 def log(msg):
@@ -486,6 +533,138 @@ def quad_wall_input(rans=False, wall_model=0):
                         use_wm=int(bool(wall_model)))
     p.bc_list = [BCParams(name="Cyc", flag=CYCLIC),
                  BCParams(name="CycX", flag=CYCLIC), wall]
+    return p
+
+
+def sod_input(shock_cap=1):
+    """The Sod shock tube of tests/test_shock_tube.py:72-104 (_sod_input;
+    testcases/euler/stube parameters): Euler, p=2, HLLC, RK45, dt 2e-6,
+    the Persson sensor (s0 1e-3) and exponential filter (36, order 4)
+    when ``shock_cap``, slip walls "L" and "R" at the tube's ends."""
+    from hifiles_tpu_torch.config.params import (CYCLIC, SLIP_WALL,
+                                                  BCParams, RunInput)
+    p = RunInput()
+    p.equation = 0
+    p.viscous = 0
+    p.order = 2
+    p.ic_form = 10
+    p.x_shock_ic = 5.0
+    p.adv_type = 3
+    p.riemann_solve_type = 3
+    p.dt_type = 0
+    p.dt = 2e-6
+    p.n_steps = 0
+    p.vcjh_scheme_quad = 1
+    p.shock_cap = shock_cap
+    p.shock_det = 0
+    p.s0 = 1e-3
+    p.expf_fac = 36.0
+    p.expf_order = 4
+    p.expf_cutoff = 0
+    p.shock_det_field = 0
+    p.dy_cyclic = 0.2
+    p.u_c_ic = p.v_c_ic = p.w_c_ic = 0.0
+    p.p_c_ic = 1e4
+    p.rho_c_ic = 0.125
+    p.bc_list = [BCParams(name="L", flag=SLIP_WALL),
+                 BCParams(name="R", flag=SLIP_WALL),
+                 BCParams(name="Cyclic", flag=CYCLIC)]
+    return p
+
+
+def sod_mesh():
+    """The tube: 120 x 2 quads on [0, 10] x [0, 0.2], cyclic in y
+    (tests/test_shock_tube.py:107-108)."""
+    from hifiles_tpu_torch import channel_quad_mesh
+    return channel_quad_mesh(120, 2, 0.0, 10.0, 0.0, 0.2, bc_x="L",
+                             bc_X="R")
+
+
+def exact_sod(x, t, x0, rho_l, p_l, rho_r, p_r, gamma=1.4):
+    """Exact density of the Sod Riemann problem (zero initial velocity):
+    copied from tests/test_shock_tube.py:15-69 (exact_sod, _df_shock),
+    which this script cannot import, _df_shock nested."""
+    import numpy as np
+    c_l = np.sqrt(gamma * p_l / rho_l)
+    c_r = np.sqrt(gamma * p_r / rho_r)
+
+    def f(p, rho_k, p_k, c_k):
+        if p > p_k:  # shock
+            A = 2.0 / ((gamma + 1) * rho_k)
+            B = (gamma - 1) / (gamma + 1) * p_k
+            return (p - p_k) * np.sqrt(A / (p + B))
+        return (2 * c_k / (gamma - 1)) * ((p / p_k) ** ((gamma - 1)
+                                                        / (2 * gamma)) - 1)
+
+    def df_shock(p, rho_k, p_k):
+        A = 2.0 / ((gamma + 1) * rho_k)
+        B = (gamma - 1) / (gamma + 1) * p_k
+        return np.sqrt(A / (p + B)) * (1 - (p - p_k) / (2 * (p + B)))
+
+    # Newton iteration for p_star
+    p_star = 0.5 * (p_l + p_r)
+    for _ in range(60):
+        fl, fr = f(p_star, rho_l, p_l, c_l), f(p_star, rho_r, p_r, c_r)
+        dfl = ((p_star / p_l) ** (-(gamma + 1) / (2 * gamma))) / (rho_l * c_l) \
+            if p_star <= p_l else df_shock(p_star, rho_l, p_l)
+        dfr = ((p_star / p_r) ** (-(gamma + 1) / (2 * gamma))) / (rho_r * c_r) \
+            if p_star <= p_r else df_shock(p_star, rho_r, p_r)
+        p_star -= (fl + fr) / (dfl + dfr)
+    u_star = 0.5 * (f(p_star, rho_r, p_r, c_r) - f(p_star, rho_l, p_l, c_l))
+
+    xi = (x - x0) / t
+    rho = np.empty_like(xi)
+    # left rarefaction (p_star < p_l for Sod)
+    rho_star_l = rho_l * (p_star / p_l) ** (1 / gamma)
+    c_star_l = np.sqrt(gamma * p_star / rho_star_l)
+    head, tail = -c_l, u_star - c_star_l
+    # right shock
+    s_shock = u_star + c_r * np.sqrt((gamma + 1) / (2 * gamma) * p_star / p_r
+                                     + (gamma - 1) / (2 * gamma))
+    rho_star_r = rho_r * ((p_star / p_r + (gamma - 1) / (gamma + 1))
+                          / ((gamma - 1) / (gamma + 1) * p_star / p_r + 1))
+    for i, s in enumerate(xi):
+        if s < head:
+            rho[i] = rho_l
+        elif s < tail:
+            # inside the left fan: c = (2 c_l - (gamma-1) s) / (gamma+1)
+            c = (2 / (gamma + 1)) * (c_l - (gamma - 1) / 2 * s)
+            rho[i] = rho_l * (c / c_l) ** (2 / (gamma - 1))
+        elif s < u_star:
+            rho[i] = rho_star_l
+        elif s < s_shock:
+            rho[i] = rho_star_r
+        else:
+            rho[i] = rho_r
+    return rho
+
+
+def sod_check(s, t):
+    """The checks of tests/test_shock_tube.py:88-100 on the Sod state of
+    solver ``s`` at time ``t``: the L1 distance of the cell-mean density
+    to exact_sod (< 0.02), the cell means within (0.11, 1.05) and the
+    nodal density within (0.115, 1.02).  Returns (passed, L1, cell-mean
+    range, nodal range)."""
+    import numpy as np
+    u = s.u
+    w = s.ops.upts_weights[None, :] * s.block.detjac_upts
+    rho_mean = np.einsum("eu,eu->e", w, u[..., 0]) / w.sum(axis=1)
+    x_mean = np.einsum("eu,eu->e", w, s.block.pos_upts[..., 0]) \
+        / w.sum(axis=1)
+    l1 = float(np.abs(rho_mean - exact_sod(x_mean, t, 5.0, 1.0, 1e5, 0.125,
+                                           1e4)).mean())
+    means = (float(rho_mean.min()), float(rho_mean.max()))
+    nodal = (float(u[..., 0].min()), float(u[..., 0].max()))
+    ok = bool(np.isfinite(u).all() and l1 < 0.02 and means[1] < 1.05
+              and means[0] > 0.11 and nodal[1] < 1.02 and nodal[0] > 0.115)
+    return ok, l1, means, nodal
+
+
+def channel_bf1_input(order=4):
+    """The `channel` deck (channel_input) with body_force_type 1: the
+    deadbeat forcing (hifiles_tpu/solver/solver.py:513-516), set in code."""
+    p = channel_input(order=order)
+    p.body_force_type = 1
     return p
 
 
@@ -900,7 +1079,7 @@ def phase_build():
 # counts its launches, and the shapes of that launch (d, solution points U,
 # elements E; d = 3, U = 125, E = 4096 unless given).
 VARIANTS = [
-    dict(name="ns", F=5, prm={}, path="plain"),
+    dict(name="ns", F=5, prm={}, path=("plain", "tgv_re1600")),
     dict(name="smagorinsky", F=5, prm=dict(sgs=0), path="smag"),
     dict(name="rans", F=6, prm={}, path="rans"),
     dict(name="overint_cubature", F=5, prm=dict(viscous=False), U=343,
@@ -913,13 +1092,16 @@ VARIANTS = [
     # as the channel launches it: geometry and the SGS cutoff broadcast
     # (uniform hexes), the wall distance full (stride 1)
     dict(name="smagorinsky_mixed_stride", F=5, prm=dict(sgs=0),
-         geos=("mixed",), path="channel"),
+         geos=("mixed",), path=("channel", "channel_bf1")),
     # d = 2 at the `quad` slice's shapes (96^2 quads, p=4); the Smagorinsky
     # and SA variants run on the walled quad channels
     dict(name="ns_2d", D=2, F=4, prm={}, U=25, E=9216, path="quad"),
     dict(name="smagorinsky_2d", D=2, F=4, prm=dict(sgs=0), U=25, E=9216,
          path="quad_channel_wm1"),
     dict(name="rans_2d", D=2, F=5, prm={}, U=25, E=9216, path="quad_rans"),
+    # the Sod shock tube's Euler launch: 120 x 2 quads, p=2
+    dict(name="sod", D=2, F=4, prm=dict(viscous=False), U=9, E=240,
+         path="sod"),
     # the `tet` slice's launch: 12^3 Kuhn tets, p=4, geometry per element
     # (six orientations: nothing compresses)
     dict(name="ns_tet", F=5, prm={}, U=35, E=10368, geos=("full",),
@@ -1645,8 +1827,10 @@ def captured_run(s, n, dt):
 
 
 def log_memory(phase):
-    """The card's peak reserved memory so far, after a phase."""
+    """The card's peak reserved memory so far, and the script's wall
+    seconds, after a phase."""
     import torch
+    log(f"wall after {phase}: {time.perf_counter() - T_START:.1f} s")
     log(f"memory after {phase}: max reserved "
         f"{torch.cuda.max_memory_reserved() / 2**30:.3f} GiB, reserved now "
         f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB")
@@ -2253,6 +2437,198 @@ def phase_diagnostics(card):
         f"{zones[0]['fields']}")
 
 
+def phase_long_tgv(card, counts):
+    """The TGV Re=1600 validation run on the card (scripts/
+    validate_torch_tgv.py's validate: 16^3 hexes, p=4, f32, t = 0 -> 14,
+    one capture and a replay for every other step, TKE every 0.05), every
+    gate of its comparison with the JAX package's curve
+    (validation/tgv_re1600.json), validate_tgv.py's PASS rule against the
+    DNS peak among them; its volume kernel launches into ``counts``.
+    Returns the record."""
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import validate_torch_tgv as vt
+    rec = vt.validate(log=lambda i, t, k: log(
+        f"long tgv_re1600: t = {t:.3f} tke {k:.9f}") if i % 80 == 0
+        else None)
+    k1 = read_k1(counts, "tgv_re1600")
+    v = rec["vs_jax"]
+    peak = (f"rel err {v['peak_rel_err']:.3e} (gate {vt.PEAK_RTOL}), time "
+            f"off by {v['peak_time_diff']:.4f} (gate {vt.PEAK_T_TOL}); DNS "
+            f"peak {rec['dns_peak_dissipation']:.6e} at "
+            f"{rec['dns_peak_time']:.4f}: PASS rule "
+            f"{v['checks']['dns_pass']}")
+    log(f"long tgv_re1600 16^3 p=4 f32 to t = {rec['t_end']:.6f}: peak "
+        f"dissipation {rec['peak_dissipation']:.6e} at t = "
+        f"{rec['peak_time']:.4f} (JAX {v['jax_peak_dissipation']:.6e} at "
+        f"{v['jax_peak_time']:.4f}; {peak}); RMS vs JAX over "
+        f"{v['jax_samples']} samples {v['rms_vs_jax']:.4e} (gate "
+        f"{v['rms_bound']:.4e}); laminar (t <= {vt.LAMINAR_T}, "
+        f"{v['laminar_samples']} samples) max |diff| "
+        f"{v['laminar_max_diff']:.4e} (gate {v['laminar_bound']:.4e}); "
+        f"TKE(0) {v['tke0']:.14f} (rel err {v['tke0_rel_err']:.3e})")
+    log(f"long tgv_re1600: {rec['steps']} steps in {rec['wall_seconds']:.2f}"
+        f" s, mean {rec['dof_rk_stage_per_s']:.6e} DOF*RK-stage/s (TKE "
+        f"read to the host every 100 steps included); run path "
+        f"{rec['run_path']!r}, captures {rec['captures']}, replays "
+        f"{rec['replays']}, volume kernel launches {k1[0]}; on [{card}]")
+    if not v["ok"]:
+        raise AssertionError(f"TGV validation failed its gates: "
+                             f"{v['checks']}")
+    return rec
+
+
+def phase_long_sod(card, counts):
+    """The Sod shock tube on the card (120 x 2 quads, p=2, HLLC, Persson
+    sensor + filter, 1000 captured steps to t = 2 ms) in f64 and f32, each
+    held to the exact solution as tests/test_shock_tube.py holds the JAX
+    run (sod_check); the f64 state against the port's on the CPU (the same
+    steps) within 1e-11 * max|u|; then without shock capture to step 2500
+    in f64, which must go non-finite or under a density of 0.105 (the JAX
+    test's signature).  The volume kernel's launches into ``counts``."""
+    import numpy as np
+    import torch
+    from hifiles_tpu_torch import Solver
+    reset_k1()
+    l1s = {}
+    for dtype in (torch.float64, torch.float32):
+        p = sod_input()
+        s = Solver(p, sod_mesh(), device="cuda", dtype=dtype)
+        t0 = time.perf_counter()
+        s.run(SOD_STEPS, dt=p.dt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ok, l1, means, nodal = sod_check(s, SOD_STEPS * p.dt)
+        name = str(dtype)[6:]
+        l1s[name] = l1
+        log(f"long sod {name}: {SOD_STEPS} steps in {wall:.3f} s, run path "
+            f"{s.run_path!r}, captures {s.captures}, replays {s.replays}; "
+            f"L1 of the cell-mean "
+            f"density vs exact {l1:.6e} (gate 0.02); cell means "
+            f"[{means[0]:.6f}, {means[1]:.6f}] (gate (0.11, 1.05)); nodal "
+            f"[{nodal[0]:.6f}, {nodal[1]:.6f}] (gate (0.115, 1.02)); on "
+            f"[{card}]")
+        if not (ok and s.run_path == "SoA (fast) captured"
+                and s.captures == 1 and s.replays == SOD_STEPS - 1):
+            raise AssertionError(f"Sod tube {name} failed its checks")
+        if dtype == torch.float64:
+            cpu = Solver(p, sod_mesh(), device="cpu", dtype=dtype)
+            t0 = time.perf_counter()
+            cpu.run(SOD_STEPS, dt=p.dt)
+            cpu_wall = time.perf_counter() - t0
+            uc = cpu.u
+            err = float(np.abs(s.u - uc).max() / np.abs(uc).max())
+            log(f"long sod f64 card vs CPU after {SOD_STEPS} steps: max "
+                f"|diff| / max|u| {err:.3e} (gate 1e-11; the CPU run "
+                f"{cpu_wall:.1f} s)")
+            if not err <= 1e-11:
+                raise AssertionError("Sod tube: card disagrees with the CPU")
+    p = sod_input(shock_cap=0)
+    s = Solver(p, sod_mesh(), device="cuda", dtype=torch.float64)
+    s.run(SOD_NO_CAPTURE_STEPS, dt=p.dt)
+    u = s.u
+    finite = bool(np.isfinite(u).all())
+    rho_min = float(np.nanmin(u[..., 0])) if finite else float("nan")
+    log(f"long sod without shock capture, f64, {SOD_NO_CAPTURE_STEPS} steps:"
+        f" state finite {finite}, min density {rho_min:.6f} (expected "
+        f"non-finite or < 0.105); run path {s.run_path!r}, captures "
+        f"{s.captures}, replays {s.replays}")
+    if finite and not rho_min < 0.105:
+        raise AssertionError("Sod tube without shock capture shows no "
+                             "oscillations")
+    if not (s.run_path == "SoA (fast) captured" and s.captures == 1
+            and s.replays == SOD_NO_CAPTURE_STEPS - 1):
+        raise AssertionError(f"Sod tube without shock capture: run path "
+                             f"{s.run_path!r}, captures {s.captures}, "
+                             f"replays {s.replays}")
+    launches, _ = read_k1(counts, "sod")
+    need = 5 * (2 * SOD_STEPS + SOD_NO_CAPTURE_STEPS)
+    log(f"long sod: volume kernel launches {launches} {counts['sod']} "
+        f"(expected {need})")
+    if launches != need:
+        raise AssertionError(f"volume_tdisf launched {launches} times on "
+                             f"the Sod runs, expected {need}")
+    return l1s
+
+
+def phase_long_channel(card, counts):
+    """The forced channel `channel_bf1` on the card (16^3 channel hexes,
+    p=4, f32, body_force_type 1): its rows at step 20 gated on
+    TORCH_GOLDENS["channel_bf1"] (CHANNEL_RTOL) and at step 100 on
+    ["channel_bf1_100"] (CHANNEL_BF1_RTOL_100), 10-step chunks to step 100,
+    then 100-step chunks to step 1000, all replays of one capture; after
+    every chunk the state is finite and the forcing's own mass flux within
+    MFLUX_BOUND of mdot0.  Returns the worst |mflux / mdot0 - 1|."""
+    import numpy as np
+    import torch
+    from hifiles_tpu_torch import Solver, channel_hex_mesh
+    p = channel_bf1_input()
+    s = Solver(p, channel_hex_mesh(16, 16, 16), device="cuda",
+               dtype=torch.float32)
+    mdot0 = p.body_force_mdot0
+    reset_k1()
+    worst, step = 0.0, 0
+    t0 = time.perf_counter()
+    while step < CHANNEL_BF1_STEPS:
+        n = 10 if step < 100 else 100
+        s.run(n, dt=p.dt)
+        step += n
+        finite = bool(torch.isfinite(s.u_soa).all())
+        err = abs(s.mdot_old / mdot0 - 1.0)
+        worst = max(worst, err)
+        if step in (20, 100) or step % 200 == 0 or not finite \
+                or not err <= MFLUX_BOUND:
+            log(f"long channel_bf1 step {step}: state finite {finite}, "
+                f"|mflux / mdot0 - 1| {err:.3e} (gate {MFLUX_BOUND})")
+        if not (finite and err <= MFLUX_BOUND):
+            raise AssertionError(f"channel_bf1 at step {step}: finite "
+                                 f"{finite}, mass flux error {err}")
+        if step in (20, 100):
+            row = s.residual_norm(1)
+            gold = np.asarray(TORCH_GOLDENS[
+                "channel_bf1" if step == 20 else "channel_bf1_100"])
+            rtol = CHANNEL_RTOL if step == 20 else CHANNEL_BF1_RTOL_100
+            rel = np.abs(row - gold) / np.abs(gold)
+            log(f"long channel_bf1 step {step} residual row "
+                f"[{', '.join(f'{v:.12e}' for v in row)}], rel err per "
+                f"row {[float(f'{r:.3e}') for r in rel]} (gate {rtol})")
+            if not (np.isfinite(row).all() and np.all(rel < rtol)):
+                raise AssertionError(f"channel_bf1 step {step} row off the "
+                                     f"golden: {row}")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, _ = read_k1(counts, "channel_bf1")
+    smag = counts["channel_bf1"].get("D3F5+inviscid+viscous+smagorinsky", 0)
+    log(f"long channel_bf1: {step} steps in {wall:.2f} s (row and mass "
+        f"flux reads included), run path {s.run_path!r}, captures "
+        f"{s.captures}, replays {s.replays}; worst |mflux / mdot0 - 1| "
+        f"{worst:.3e} (gate {MFLUX_BOUND}); volume kernel launches "
+        f"{launches} {counts['channel_bf1']}; on [{card}]")
+    if not (s.run_path == "SoA featured (fast) captured" and s.captures == 1
+            and smag >= 5 * CHANNEL_BF1_STEPS):
+        raise AssertionError(f"channel_bf1: run path {s.run_path!r}, "
+                             f"captures {s.captures}, smagorinsky launches "
+                             f"{smag}")
+    return worst
+
+
+def phase_long(card, counts):
+    """Phase 8: the long runs, each through the port's captured Solver
+    path on the card, each gate raising; their summaries."""
+    sod = phase_long_sod(card, counts)
+    worst = phase_long_channel(card, counts)
+    rec = phase_long_tgv(card, counts)
+    v = rec["vs_jax"]
+    log(f"long summary: TGV to t = {rec['t_end']:.4f}, highest dissipation "
+        f"{rec['peak_dissipation']:.6e} at t = {rec['peak_time']:.4f}, RMS "
+        f"vs JAX {v['rms_vs_jax']:.4e}, laminar "
+        f"max |diff| {v['laminar_max_diff']:.4e}, {rec['wall_seconds']:.1f} "
+        f"s, mean {rec['dof_rk_stage_per_s']:.6e} DOF*RK-stage/s over "
+        f"{rec['steps']} steps; Sod L1 f64 {sod['float64']:.6e} f32 "
+        f"{sod['float32']:.6e}; channel_bf1 worst |mflux / mdot0 - 1| "
+        f"{worst:.3e}; on [{card}]")
+    return rec
+
+
 def path_launches(counts, path, v):
     """(launches, segments) of kernel-record row ``v`` (a VARIANTS or a
     GROUPS entry) on the run of ``path``: for a group, the launches of
@@ -2272,7 +2648,8 @@ def path_launches(counts, path, v):
 
 
 def main():
-    t0 = time.perf_counter()
+    global T_START
+    t0 = T_START = time.perf_counter()
     card = phase_device()
     sys.path.insert(0, ROOT)
     phase_build()
@@ -2301,13 +2678,15 @@ def main():
     phase_driver_sharded(card, counts, rows_one)
     phase_diagnostics(card)
     log_memory("the driver and diagnostics")
+    phase_long(card, counts)
+    log_memory("the long runs")
     for name, g in GRAPHS.items():
         log(f"graph summary {name}: captured vs eager max |diff| "
             f"{g['diff']:.3e} (bit for bit {g['exact']}); device kernels per "
             f"RK stage replayed {g['replay']:.1f}, eager {g['eager']:.1f}; "
             f"volume kernel per step {g['k1_replay']}; capture "
             f"{g['capture_s']:.3f} s")
-    log(f"chip_smoke: phases 1-7 in {time.perf_counter() - t0:.1f} s")
+    log(f"chip_smoke: phases 1-8 in {time.perf_counter() - t0:.1f} s")
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "hifiles_tpu")]
     if loaded:

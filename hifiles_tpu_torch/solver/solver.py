@@ -309,9 +309,11 @@ class BlockLoop:
         self.n_stages = N_STAGES[p.adv_type]
         self._setup_featured()
         # the run chunk's state: its step graph, what it was captured for
-        # (dt's kind, the inlet's draw object) and the dt buffers
+        # (dt's kind, the inlet's draw object) and the dt buffers; the
+        # captures and replays made so far
         self._graph = self._graph_key = None
         self._graph_launches = self.capture_seconds = None
+        self.captures = self.replays = 0
         self.run_path, self._logged = None, set()
         self._dt_kind = "global"
         self._dt_s = torch.zeros((), dtype=dt_, device=self.device)
@@ -618,7 +620,8 @@ class BlockLoop:
         step; then the step is captured, which runs nothing, and replayed
         for the others, with no host sync between replays.  The step is
         captured anew only when its structure changes: dt's kind (global
-        or per element) or the inlet's draw object.  A ReplayDraws inlet
+        or per element) or the inlet's draw object.  ``captures`` and
+        ``replays`` count them.  A ReplayDraws inlet
         stages each step's draws before its replay.  The volume kernel's
         counters count each replay's launches (volume.count_replay)."""
         make = self._step_graph
@@ -644,10 +647,12 @@ class BlockLoop:
                     lambda: g.capture(self._step_body))
                 self.capture_seconds = time.perf_counter() - t0
                 self._graph, self._graph_key = g, key
+                self.captures += 1
             for _ in range(left):
                 self._stage_draws()
                 self._graph.replay()
                 count_replay(self._graph_launches)
+            self.replays += left
         return chunk
 
     def release_graph(self):

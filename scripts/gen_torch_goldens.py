@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """The f32 CPU golden residual rows of the PyTorch port's `quad`, `tet`,
-`sem` and `advdiff` slices (chip_smoke.py), recorded with the JAX package.
+`sem` and `advdiff` slices and of its forced channel `channel_bf1`
+(chip_smoke.py), recorded with the JAX package.
 
   JAX_PLATFORMS=cpu python scripts/gen_torch_goldens.py [quad] [tet] [sem]
-      [advdiff]
+      [advdiff] [channel_bf1]
 
 Protocol of bench.py (warmup + timed steps): 10 + 10 RK45 steps in f32, the
 L1 residual row after step 20.
@@ -27,7 +28,14 @@ L1 residual row after step 20.
         and gradient rows (as `advdiff_error`) of the same run in f64: in
         f32 the state's rounding (6e-8 of the unit wave) outweighs the
         p=4 discretization error (the f32 rows read 2x and 3.4x the f64
-        ones), so the error rows are held in f64.
+        ones), so the error rows are held in f64;
+  channel_bf1: bench.run_channel's deck (tests/decks/input_channel_les_bench,
+        16^3 channel hexes, p=4) with body_force_type 1 (the deadbeat
+        forcing, hifiles_tpu/solver/solver.py:513-516) set in code: the
+        rows after 10 + 10 steps and after 100 steps (10-step chunks), then
+        the same deck stepped one step at a time to step 100, logging the
+        forcing's own |mflux / mdot0 - 1| after every step (its maximum as
+        `channel_bf1_mflux_err`) and the step-100 row of that run.
 Prints one JSON line per slice; paste the rows into chip_smoke.py's
 TORCH_GOLDENS (and SEM_DT) with the date and this command.
 """
@@ -150,6 +158,38 @@ def advdiff_rows():
             "advdiff_error": [float(err[0, 0]), float(err[1, 0])]}
 
 
+def channel_bf1_rows(n_steps=100):
+    import jax.numpy as jnp
+    import numpy as np
+    from hifiles_tpu.config.params import RunInput
+    from hifiles_tpu.mesh.generate import channel_hex_mesh
+    from hifiles_tpu.solver.solver import Solver
+
+    def solver():
+        p = RunInput.from_deck(os.path.join(ROOT, "tests", "decks",
+                                            "input_channel_les_bench"))
+        p.body_force_type = 1
+        return Solver(p, channel_hex_mesh(16, 16, 16), dtype=jnp.float32), p
+
+    row = lambda s: [float(x) for x in np.asarray(s.residual_norm(1))]
+    s, p = solver()
+    rows = {}
+    for step in range(10, n_steps + 1, 10):
+        s.run(10, dt=p.dt)
+        if step in (20, n_steps):
+            rows[step] = row(s)
+    s, p = solver()
+    errs = []
+    for step in range(1, n_steps + 1):
+        s.run(1, dt=p.dt)
+        errs.append(abs(float(s._mdot_old) / p.body_force_mdot0 - 1.0))
+        print(f"channel_bf1 step {step}: |mflux / mdot0 - 1| "
+              f"{errs[-1]:.6e}", file=sys.stderr, flush=True)
+    return {"channel_bf1": rows[20], "channel_bf1_100": rows[n_steps],
+            "channel_bf1_mflux_err": max(errs),
+            "channel_bf1_100_stepwise": row(s)}
+
+
 def golden_row(name):
     import jax.numpy as jnp
     import numpy as np
@@ -164,8 +204,8 @@ def golden_row(name):
     elif name == "tet":
         p, mesh = tgv_deck(), periodic_tet_mesh(12, 12, 12)
     else:
-        raise SystemExit(f"unknown slice {name!r}: quad, tet, sem or "
-                         "advdiff")
+        raise SystemExit(f"unknown slice {name!r}: quad, tet, sem, "
+                         "advdiff or channel_bf1")
     s = Solver(p, mesh, dtype=jnp.float32)
     s.run(10, dt=p.dt)
     s.run(10, dt=p.dt)
@@ -173,9 +213,11 @@ def golden_row(name):
 
 
 if __name__ == "__main__":
-    for name in sys.argv[1:] or ["quad", "tet", "sem", "advdiff"]:
+    for name in sys.argv[1:] or ["quad", "tet", "sem", "advdiff",
+                                 "channel_bf1"]:
         t0 = time.perf_counter()
-        rows = {"sem": sem_row, "advdiff": advdiff_rows}.get(name)
+        rows = {"sem": sem_row, "advdiff": advdiff_rows,
+                "channel_bf1": channel_bf1_rows}.get(name)
         print(json.dumps(rows() if rows else {name: golden_row(name)}),
               flush=True)
         print(f"{name}: {time.perf_counter() - t0:.1f} s", file=sys.stderr)

@@ -217,6 +217,26 @@ for out, extra in (("out", []), ("out2", ["--devices", "2"])):
 assert {"hifiles_tpu_torch.driver", "hifiles_tpu_torch.io.vtu",
         "hifiles_tpu_torch.io.history", "hifiles_tpu_torch.io.restart",
         "hifiles_tpu_torch.parallel.soa_sharding"} <= set(sys.modules)
+# the long runs' entry points at toy sizes: the TGV validation script's
+# run and comparison, chip_smoke.py's Sod tube and type-1 forced channel
+import chip_smoke
+sys.path.insert(0, os.path.join(chip_smoke.ROOT, "scripts"))
+import validate_torch_tgv as vt
+rec = vt.validate(order=1, n1=2, t_end=0.2, device="cpu", dtype=torch.float64)
+assert len(rec["t"]) == 4 and np.isfinite(rec["dissipation"]).all()
+assert set(rec["vs_jax"]["checks"]) >= {"laminar", "rms", "tke0"}
+from chip_smoke import channel_bf1_input, sod_check, sod_input
+p = sod_input()
+s = ht.Solver(p, ht.channel_quad_mesh(12, 1, 0.0, 10.0, 0.0, 0.2, bc_x="L",
+                                      bc_X="R"), device="cpu",
+              dtype=torch.float64)
+s.run(3, dt=p.dt)
+assert len(sod_check(s, 3 * p.dt)) == 4 and np.isfinite(s.u).all()
+p = channel_bf1_input(order=1)
+s = ht.Solver(p, ht.channel_hex_mesh(2, 2, 2), device="cpu",
+              dtype=torch.float64)
+s.run(2, dt=p.dt)
+assert p.body_force_type == 1 and np.isfinite(s.mdot_old)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "hifiles_tpu"))
 assert not loaded, loaded
@@ -235,8 +255,10 @@ def test_port_runs_with_jax_blocked():
     channel, a ShardedMixedSolver tri+quad box); a run chunk through the
     capture seam with a stand-in graph; and runs ``python -m
     hifiles_tpu_torch`` on a tiny deck on the CPU, single-device and with
-    ``--devices 2``, with every import of JAX and of the JAX package
-    hifiles_tpu refused."""
+    ``--devices 2``; and the long runs' entry points at toy sizes
+    (scripts/validate_torch_tgv.py's validate, chip_smoke.py's Sod tube
+    and type-1 forced channel), with every import of JAX and of the JAX
+    package hifiles_tpu refused."""
     env = dict(os.environ, OMP_NUM_THREADS="1")
     res = subprocess.run([sys.executable, "-c", _NO_JAX, ROOT],
                          capture_output=True, text=True, env=env,
