@@ -62,7 +62,8 @@ comparison asks for (``graph=False``):
                the `plain`, `smag`, `overint`, `rans` and `shock` cases of
                bench.py (TGV p=4 on 16^3 periodic hexes, f32) and its
                `channel` case (forced plane-channel LES on 16^3 hexes, p=4,
-               f32, bench.run_channel) for 10 + 10 steps each, gated on
+               f32), built by hifiles_tpu_torch.bench (imported as
+               ``bench``), for 10 + 10 steps each, gated on
                bench.GOLDENS (the `channel` then 40 steps more, ungated,
                logging whether it stays finite); the `quad`
                (bench.mixed_input's vortex, p=4, 96^2 quads) and `tet`
@@ -79,8 +80,11 @@ comparison asks for (``graph=False``):
                its inlet's mass flux and the inlet update's device time;
                the kernels' launch counts read around each run; the rates
                of every one of these cells, captured and eager, from 6
-               interleaved 10-step repeats, and their device kernels per
-               RK stage; then the sharded cells, all
+               interleaved 10-step repeats (bench.rates), and their device
+               kernels per RK stage; then the benchmark entry point,
+               `python3 -m hifiles_tpu_torch.bench plain` as a subprocess:
+               its JSON record gated and its rate within 15% of this
+               process's `plain` median; then the sharded cells, all
                shards on the card: `plain` in 4 shards, `channel` in 3
                (1,366/1,365/1,365 elements) and `mixed3d` in 4 through
                ShardedMixedSolver, 10 + 10 steps gated on bench.GOLDENS,
@@ -121,16 +125,17 @@ comparison asks for (``graph=False``):
                t = 14, 28,000 steps from one capture, held to the JAX
                package's dissipation curve (validation/tgv_re1600.json)
                and to validate_tgv.py's PASS rule on the DNS peak;
-  9. checks  - no module of JAX or of the JAX package was imported; the
-               graph phase's summary, and the card's peak reserved memory
-               and the wall seconds after each phase.
+  9. checks  - no module of JAX, of the JAX package or the root bench.py
+               was imported; the graph phase's summary, and the card's
+               peak reserved memory and the wall seconds after each phase.
 The last two lines are the kernel record (each variant at one shape, its
 launches that carried that shape and its segments, summed over the paths
 that launch it, split in ``launches_by_path``, the long runs' paths
-`tgv_re1600`, `sod` and `channel_bf1` among them: the shards of the sharded
-cells are variants of their own; then each grouped launch, its launches
-and segments) and {"ok": true, "device": ...}.
-The script imports nothing of JAX and nothing of the JAX package.
+`tgv_re1600`, `sod` and `channel_bf1` and the entry point's `bench` among
+them: the shards of the sharded cells are variants of their own; then each
+grouped launch, its launches and segments) and {"ok": true, "device": ...}.
+The script imports nothing of JAX, nothing of the JAX package and not the
+root bench.py.
 """
 
 import json
@@ -142,13 +147,12 @@ import subprocess
 import sys
 import time
 
+from hifiles_tpu_torch import bench
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # when main() started: log_memory reports the wall seconds since
 T_START = time.perf_counter()
 
-# bench.py's cross-platform gate for rows checked against the CPU golden
-# (bench.GATE_RTOL holds the wider per-configuration entries)
-GATE_RTOL = 5e-3
 # kernel vs plain version: max-abs error bound relative to max(scale, 1);
 # the two sum in different orders (see tests/test_pallas_volume.py: 2e-6)
 KERNEL_TOL = {"float32": 1e-5, "float64": 1e-12}
@@ -157,16 +161,7 @@ N_TIMED = 20
 # longer than the host takes to queue N_TIMED calls of either version
 SLEEP_CYCLES = 200_000_000
 SLICES = ["plain", "smag", "overint", "rans", "shock"]
-CHANNEL_DECK = os.path.join(ROOT, "tests", "decks", "input_channel_les_bench")
-# The channel's rows against bench.GOLDENS["channel"], row by row.  Row 3
-# (z-momentum) is f32 rounding amplified: the uniform IC carries no
-# z-momentum, and bench.py:77-78,108-112 records the row at 2.86e-4 (CPU
-# golden), 2.73e-4 (TPU golden) and 2.3e-4 (an earlier CPU row).  On an
-# H100 the f32 row reads 2.30e-4 from the IC and 2.68e-4 from the IC
-# perturbed by 1e-7, and the f64 row 1.77e-4, while rows 0-2 and 4 stay
-# within 3e-3.  So row 3 is held to the spread of the f32 rows, 0.25; a
-# corrupted flux moves the rows by far more (bench.py:119-121).
-CHANNEL_RTOL = [GATE_RTOL, GATE_RTOL, GATE_RTOL, 0.25, GATE_RTOL]
+CHANNEL_DECK = bench.CHANNEL_DECK
 DECKS = os.path.join(ROOT, "tests", "decks")
 # The reference HiFiLES binary's goldens, copied from
 # tests/test_regression_reference.py (this script cannot import that test
@@ -303,37 +298,11 @@ def log(msg):
 
 
 def tgv_input(order=4, config="plain", **attrs):
-    """The TGV deck of bench.py:278-300 (testcases Taylor_Green_vortex) with
-    bench.configure(config) and ``attrs`` applied before setup_params, as
-    bench.py:297 does."""
-    import numpy as np
-    import bench
-    from hifiles_tpu_torch.config.params import RunInput
-    p = RunInput()
-    p.equation = 0
-    p.viscous = 1
-    p.order = order
-    p.ic_form = 7
-    p.adv_type = 3                 # RK45, 5 stages
-    p.riemann_solve_type = 3       # HLLC
-    p.dt_type = 0
-    p.n_steps = 10
-    p.vcjh_scheme_hexa = 1
-    p.dx_cyclic = p.dy_cyclic = p.dz_cyclic = 2 * np.pi
-    p.gamma, p.R_gas, p.fix_vis = 1.4, 286.9, 1
-    p.prandtl = 0.72
-    p.Mach_free_stream, p.T_free_stream = 0.1, 300.0
-    p.rho_free_stream = 0.0008421095852102401
-    p.mu_gas = 1.827e-5
-    p.L_free_stream = 1.0
-    p.Mach_c_ic, p.T_c_ic, p.rho_c_ic = 0.1, 300.0, 0.0008421095852102401
-    p.dt = 1.440389e-5
-    if config in SLICES:
-        bench.configure(p, config)
-    for k, v in attrs.items():
-        setattr(p, k, v)
-    p.setup_params()
-    return p
+    """bench.tgv_input's TGV deck (bench.py:278-298) at ``order``, with
+    bench.configure(config) for the bench configurations (SLICES) and
+    ``attrs`` applied before setup_params."""
+    return bench.tgv_input(config if config in SLICES else "plain", order,
+                           **attrs)
 
 
 # The driver phase's deck: bench.run_tgv("plain")'s RunInput (bench.py:
@@ -367,11 +336,9 @@ def tgv_deck(mesh_file, **run):
 
 
 def channel_input(order=4, wall_model=0):
-    """The deck of bench.run_channel (bench.py:377-404) at ``order``; with
+    """bench.channel_input's deck (bench.py:377-404) at ``order``; with
     ``wall_model`` its walls use that wall model."""
-    from hifiles_tpu_torch.config.params import RunInput
-    p = RunInput.from_deck(CHANNEL_DECK)
-    p.order = order
+    p = bench.channel_input(order)
     if wall_model:
         p.wall_model = wall_model
         p.read_boundary_params(["Cyclic", "Wall"])
@@ -408,22 +375,6 @@ def duct_input(order=3):
                  T_total_old=1.0),
         BCParams(name="Outflow", flag=SUB_OUT_SIMP, p_static=71.0,
                  T_total=1.0)]
-    return p
-
-
-def vortex_input(order=4):
-    """bench.mixed_input()'s deck (bench.py:156-169): the 2-D viscous
-    isentropic vortex, HLLC, dt 1e-4, built with the port's RunInput."""
-    from hifiles_tpu_torch.config.params import RunInput
-    p = RunInput()
-    p.equation, p.viscous, p.order = 0, 1, order
-    p.ic_form, p.test_case, p.adv_type = 0, 1, 3
-    p.riemann_solve_type = 3           # HLLC
-    p.dt_type, p.dt = 0, 1e-4
-    p.mach_free_stream = 0.3
-    p.dx_cyclic = p.dy_cyclic = 20.0
-    p.mu_inf, p.rt_inf, p.c_sth = 1e-4, 1.0, 0.0
-    p.fix_vis, p.prandtl = 1, 0.72
     return p
 
 
@@ -680,43 +631,32 @@ def quad_wall_mesh(x1=4.0, nx=8, ny=4):
 
 
 def slice_case(name):
-    """(deck, mesh) of a slice at full width: the bench TGV cases (p=4 on
-    16^3 periodic hexes); `quad`, bench.mixed_input()'s vortex on the quad
-    half of the `mixed` cell's 96^2 box (9,216 quads, p=4); `tet`,
-    bench.run_tgv's TGV deck on 12^3 Kuhn tets (10,368 tets, p=4);
-    `mixed` (bench.run_mixed, bench.py:322-342), the same vortex on the
-    96^2 tri+quad box (4,608 quads and 9,216 tris, p=4); `mixed3d`
-    (bench.run_mixed3d, bench.py:345-374), the deck
-    tests/decks/input_prism_tet_wm_bench on channel_prism_tet_mesh(32, 32,
-    4, 4): 8,192 prisms near the wall and 24,576 tets above, p=2; `sem`,
-    les_duct_input on duct_mesh(16) (4,096 hexes, p=4, a 1000-eddy SEM
-    inlet on its 256 x- faces); `advdiff`, adv_diff_input on the 16^3 box
-    [-1, 1]^3 (4,096 hexes, p=4, one field) with dt ADVDIFF_DT;
-    `channel`, bench.run_channel's deck on channel_hex_mesh(16, 16, 16)."""
-    from hifiles_tpu_torch import (RunInput, channel_prism_tet_mesh,
-                                   periodic_hex_mesh, periodic_mixed_mesh_2d,
-                                   periodic_quad_mesh, periodic_tet_mesh)
-    if name in SLICES:
-        return tgv_input(order=4, config=name), periodic_hex_mesh(16, 16, 16)
+    """(deck, mesh) of a slice at full width: bench.py's configurations
+    from bench.case (the TGV cases, p=4 on 16^3 periodic hexes; `mixed`,
+    the vortex on the 96^2 tri+quad box, 4,608 quads and 9,216 tris, p=4;
+    `mixed3d`, tests/decks/input_prism_tet_wm_bench on
+    channel_prism_tet_mesh(32, 32, 4, 4), 8,192 prisms near the wall and
+    24,576 tets above, p=2; `channel`, its deck on channel_hex_mesh(16, 16,
+    16)); `quad`, bench.mixed_input()'s vortex on the quad half of the
+    `mixed` cell's 96^2 box (9,216 quads, p=4); `tet`, bench.tgv_input's
+    TGV deck on 12^3 Kuhn tets (10,368 tets, p=4); `sem`, les_duct_input on
+    duct_mesh(16) (4,096 hexes, p=4, a 1000-eddy SEM inlet on its 256 x-
+    faces); `advdiff`, adv_diff_input on the 16^3 box [-1, 1]^3 (4,096
+    hexes, p=4, one field) with dt ADVDIFF_DT."""
+    from hifiles_tpu_torch import (periodic_hex_mesh, periodic_quad_mesh,
+                                   periodic_tet_mesh)
+    if name in bench.ALL_CONFIGS:
+        c = bench.case(name)
+        return c.p, c.mesh
     if name == "quad":
-        return vortex_input(order=4), periodic_quad_mesh(96, 96, -10, 10,
-                                                         -10, 10)
-    if name == "mixed":
-        return vortex_input(order=4), periodic_mixed_mesh_2d(96, 96, -10, 10,
-                                                             -10, 10)
-    if name == "mixed3d":
-        return (RunInput.from_deck(os.path.join(DECKS,
-                                                "input_prism_tet_wm_bench")),
-                channel_prism_tet_mesh(32, 32, 4, 4, x1=2.0, y1=1.0, z1=1.0))
+        return bench.mixed_input(), periodic_quad_mesh(96, 96, -10, 10, -10,
+                                                       10)
     if name == "sem":
         return les_duct_input(order=4, n_eddy=1000), duct_mesh(16)
     if name == "advdiff":
         p = adv_diff_input(order=4)
         p.dt = ADVDIFF_DT
         return p, periodic_hex_mesh(16, 16, 16, -1, 1, -1, 1, -1, 1)
-    if name == "channel":
-        from hifiles_tpu_torch import channel_hex_mesh
-        return channel_input(order=4), channel_hex_mesh(16, 16, 16)
     return tgv_input(order=4), periodic_tet_mesh(12, 12, 12)
 
 
@@ -784,7 +724,7 @@ def small_mixed():
                                    periodic_mixed_mesh_2d,
                                    periodic_prism_mesh)
     box = lambda: periodic_mixed_mesh_2d(6, 6, -10, 10, -10, 10)
-    les, over = vortex_input(order=3), vortex_input(order=3)
+    les, over = bench.mixed_input(order=3), bench.mixed_input(order=3)
     les.LES, les.SGS_model, les.C_s = 1, 0, 0.1
     over.over_int, over.over_int_order = 1, 5
     return {
@@ -828,7 +768,7 @@ def small_types():
         "vortex": (RunInput.from_deck(os.path.join(DECKS,
                                                    "input_vortex_parity")),
                    periodic_quad_mesh(8, 8, -5, 5, -5, 5)),
-        "tri": (vortex_input(order=3),
+        "tri": (bench.mixed_input(order=3),
                 periodic_tri_mesh(6, 6, -10, 10, -10, 10)),
         "tet_roem": (tgv_input(order=3, riemann_solve_type=2),
                      periodic_tet_mesh(2, 2, 2)),
@@ -1079,7 +1019,7 @@ def phase_build():
 # counts its launches, and the shapes of that launch (d, solution points U,
 # elements E; d = 3, U = 125, E = 4096 unless given).
 VARIANTS = [
-    dict(name="ns", F=5, prm={}, path=("plain", "tgv_re1600")),
+    dict(name="ns", F=5, prm={}, path=("plain", "tgv_re1600", "bench")),
     dict(name="smagorinsky", F=5, prm=dict(sgs=0), path="smag"),
     dict(name="rans", F=6, prm={}, path="rans"),
     dict(name="overint_cubature", F=5, prm=dict(viscous=False), U=343,
@@ -1527,11 +1467,12 @@ def phase_reference(counts):
 
 def slice_gate(name):
     """(golden row, rtol per row) of a slice: the row of TORCH_GOLDENS
-    (`quad`, `tet`, `sem`, `advdiff`) or bench.GOLDENS, at
-    bench.GATE_RTOL's rtol."""
-    import bench
-    gold = TORCH_GOLDENS.get(name) or bench.GOLDENS[name]
-    return gold, [bench.GATE_RTOL.get(name, GATE_RTOL)] * len(gold)
+    (`quad`, `tet`, `sem`, `advdiff`) at bench.RTOL, or bench.golden(name)
+    (bench.GOLDENS at bench.GATE_RTOL's rtol, the `channel` at
+    bench.CHANNEL_RTOL)."""
+    if name in TORCH_GOLDENS:
+        return TORCH_GOLDENS[name], [bench.RTOL] * len(TORCH_GOLDENS[name])
+    return bench.golden(name)
 
 
 def sem_draws():
@@ -1604,8 +1545,8 @@ def phase_slice(card, name, counts):
         log(f"slice advdiff f64 compute_error(2) rows (solution, gradient) "
             f"[{', '.join(f'{v:.12e}' for v in err)}], golden "
             f"{list(map(float, gold))}, rel err "
-            f"{[float(f'{r:.3e}') for r in rel]} (gate {GATE_RTOL})")
-        if not (np.isfinite(err).all() and np.all(rel < GATE_RTOL)):
+            f"{[float(f'{r:.3e}') for r in rel]} (gate {bench.RTOL})")
+        if not (np.isfinite(err).all() and np.all(rel < bench.RTOL)):
             raise AssertionError(f"advdiff error rows off the golden: {err}")
     # every block's volume stage on every RK stage of the 20 steps, and
     # the monitor's (equation 1's scalar volume flux is plain torch)
@@ -1666,18 +1607,16 @@ def phase_sem(card, s, p):
 
 def phase_channel(card, counts):
     """bench.py's `channel` case on the card through the port's entry
-    points (bench.run_channel: the deck, 16^3 channel hexes, p=4, f32,
-    10 + 10 steps), gated row by row on bench.GOLDENS["channel"]; records
+    points (bench.channel_case: the deck, 16^3 channel hexes, p=4, f32,
+    10 + 10 steps), gated row by row (slice_gate); records
     its launch counts by variant in ``counts``; then, ungated, 40 steps
     more in 10-step chunks, logging whether the state stays finite (the
     sharded `channel`'s repeats restart from the IC for this reason).
     Returns the solver, back at its gated state, and its deck."""
     import numpy as np
     import torch
-    import bench
-    from hifiles_tpu_torch import Solver, channel_hex_mesh
-    p = channel_input(order=4)
-    mesh = channel_hex_mesh(16, 16, 16)
+    from hifiles_tpu_torch import Solver
+    p, mesh = slice_case("channel")
     t0 = time.perf_counter()
     s = Solver(p, mesh, device="cuda", dtype=torch.float32)
     torch.cuda.synchronize()
@@ -1697,20 +1636,20 @@ def phase_channel(card, counts):
         f"{s.capture_seconds:.3f} s, the graph holds {held / 2**20:.1f} MiB")
 
     rate = s.dof * s.n_stages * 10 / wall
-    gold = np.asarray(bench.GOLDENS["channel"])
+    gold, rtol = slice_gate("channel")
     rel = np.abs(row - gold) / np.abs(gold)
     mflux, ubulk, bf = s.inflow_massflux()
     avg_ok = bool(np.isfinite(s.u_avg).all())
     log(f"slice channel residual row [{', '.join(f'{v:.12e}' for v in row)}]")
     log(f"slice channel golden       {list(map(float, gold))}")
     log(f"slice channel rel err per row {[float(f'{r:.3e}') for r in rel]} "
-        f"(gate {CHANNEL_RTOL})")
+        f"(gate {rtol})")
     log(f"slice channel rate {rate:.6e} DOF*RK-stage/s over 10 steps "
         f"({wall:.4f} s) on [{card}]")
     log(f"slice channel mass flux {mflux:.12e}, bulk velocity {ubulk:.12e}, "
         f"next body force {bf:.6e}; averages finite: {avg_ok}")
     log(f"slice channel launches {launches} {counts['channel']}")
-    if not (np.isfinite(row).all() and np.all(rel < CHANNEL_RTOL)
+    if not (np.isfinite(row).all() and np.all(rel < rtol)
             and avg_ok and np.isfinite(mflux)):
         raise AssertionError(f"channel residual row off the golden: {row}")
     smag = counts["channel"].get(
@@ -1732,24 +1671,6 @@ def phase_channel(card, counts):
             break
     s.restore(gated)
     return s, p
-
-
-def step_kernels(s, dt, graph=True):
-    """(device kernels, memsets and copies; volume-kernel launches) of one
-    traced step, counted by torch.profiler: a replay of the captured step
-    (its capture first, untraced, if it has none), or with graph=False an
-    eager step."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    if graph and s._graph is None:
-        s.run(1, dt=dt)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        s.run(1, dt=dt, graph=graph)
-        torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    names = [ev.name for ev in prof.events() if ev.device_type == cuda]
-    return len(names), sum(1 for n in names if "volume_tdisf" in n)
 
 
 def state_vector(s):
@@ -1783,8 +1704,8 @@ def graph_vs_eager(card, name, s, dt, n=10):
     scale = float(eager.abs().max())
     exact = bool(torch.equal(captured, eager))
     for _ in range(2):
-        k_e, k1_e = step_kernels(s, dt, graph=False)
-        k_g, k1_g = step_kernels(s, dt, graph=True)
+        k_e, k1_e = bench.step_kernels(s, dt, graph=False)
+        k_g, k1_g = bench.step_kernels(s, dt, graph=True)
         if abs(k_g - k_e) <= 0.01 * k_e and k1_g == k1_e:
             break
         # the profiler has been seen to drop some of an eager step's
@@ -1837,45 +1758,56 @@ def log_memory(phase):
 
 
 def phase_rates(card, runs, repeats=N_RATE_REPEATS):
-    """The rate of each of ``runs`` (name -> (solver, deck)), captured and
-    eager: median and quartiles of ``repeats`` 10-step repeats of each,
-    the cells taking turns and each cell's captured and eager runs
-    alternating which goes first, so that all see the same host; every
-    repeat starts from the cell's state at the call (a deck may stay
-    finite only for its gated steps, as the `channel`'s).  Then device
-    kernels per RK stage of a replayed and of an eager step.  Returns the
-    medians by name and mode."""
-    import numpy as np
-    import torch
-    modes = ("captured", "eager")
-    rates = {name: {m: [] for m in modes} for name in runs}
-    snaps = {name: s.snapshot() for name, (s, _) in runs.items()}
-    for k in range(repeats):
-        for name, (s, p) in runs.items():
-            for mode in (modes if k % 2 == 0 else modes[::-1]):
-                s.restore(snaps[name])
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                s.run(10, dt=p.dt, graph=mode == "captured")
-                torch.cuda.synchronize()
-                rates[name][mode].append(s.dof * s.n_stages * 10
-                                         / (time.perf_counter() - t0))
-    out = {}
-    for name, (s, p) in runs.items():
-        out[name] = {m: float(np.median(rates[name][m])) for m in modes}
-        for mode in modes:
-            q1, med, q3 = np.percentile(rates[name][mode], [25, 50, 75])
-            kernels = step_kernels(s, p.dt, mode == "captured")[0]
-            log(f"rate {name} {mode}: median {med:.6e} [{q1:.6e}, "
-                f"{q3:.6e}] DOF*RK-stage/s over {repeats} interleaved "
-                f"10-step repeats; {kernels / s.n_stages:.1f} device "
-                f"kernels per RK stage; on [{card}]")
+    """bench.rates of ``runs`` (name -> (solver, deck)), captured and
+    eager, logged with the card's name; returns its record."""
+    out = bench.rates(runs, repeats)
+    for name, rec in out.items():
+        for mode, r in rec.items():
+            log(f"rate {name} {mode}: median {r['median']:.6e} "
+                f"[{r['quartiles'][0]:.6e}, {r['quartiles'][1]:.6e}] "
+                f"DOF*RK-stage/s over {repeats} interleaved 10-step "
+                f"repeats; {r['kernels']:.1f} device kernels per RK stage; "
+                f"on [{card}]")
         log(f"rate {name}: captured / eager "
-            f"{out[name]['captured'] / out[name]['eager']:.3f}")
-        if not np.isfinite(s.residual_norm(1)).all():
-            raise AssertionError(f"{name} went non-finite in the repeats")
-        s.restore(snaps[name])
+            f"{rec['captured']['median'] / rec['eager']['median']:.3f}")
     return out
+
+
+def phase_bench(card, counts, plain_rate):
+    """``python3 -m hifiles_tpu_torch.bench plain`` as a subprocess from
+    the repository's root: its last stdout line, bench.py's JSON record of
+    one configuration, gated, with no ``configs``, its captured median
+    within 15% of ``plain_rate`` (this process's `plain` median); the
+    volume kernel's launches it prints (into ``counts`` as path
+    "bench"), at least those of its 10 + 10 steps and repeats."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "hifiles_tpu_torch.bench",
+                          "plain"], cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"hifiles_tpu_torch.bench plain exited "
+                             f"{res.returncode}:\n{res.stdout[-2000:]}\n"
+                             f"{res.stderr[-4000:]}")
+    rec = json.loads(res.stdout.strip().splitlines()[-1])
+    launches = json.loads(re.search(
+        r"^bench\[plain\] volume_tdisf launches: (.*)$", res.stderr,
+        re.M).group(1))
+    counts["bench"] = launches
+    ns_key = next(v["key"] for v in VARIANTS if v["name"] == "ns")
+    need = 5 * 10 * (2 + 2 * N_RATE_REPEATS)
+    ratio = rec["value"] / plain_rate
+    log(f"bench entry point: {rec}; {ratio:.3f} x this process's `plain` "
+        f"captured median (gate 0.85-1.15); volume_tdisf launches "
+        f"{launches} (>= {need}); process {wall:.1f} s; on [{card}]")
+    for line in res.stderr.splitlines():
+        if line.startswith("bench"):
+            log(f"bench entry point stderr: {line}")
+    if not (set(rec) == {"metric", "value", "unit", "vs_baseline", "gated"}
+            and rec["gated"] is True and 0.85 < ratio < 1.15
+            and launches.get(ns_key, 0) >= need):
+        raise AssertionError(f"the bench entry point's record {rec} or "
+                             f"launches {launches} fail their checks")
 
 
 def run_driver(deck, outdir, *extra):
@@ -2164,8 +2096,6 @@ def phase_sharded(card, counts, plain):
             f"{s.capture_seconds:.3f} s, the graph holds "
             f"{held / 2**20:.1f} MiB")
         gold, rtol = slice_gate(name)
-        if name == "channel":
-            rtol = CHANNEL_RTOL
         rel = np.abs(row - gold) / np.abs(gold)
         log(f"sharded {cell} residual row "
             f"[{', '.join(f'{v:.12e}' for v in row)}]; rel err per row "
@@ -2188,9 +2118,10 @@ def phase_sharded(card, counts, plain):
     rates = phase_rates(card, runs, SHARDED_REPEATS)
     for cell in SHARDED_SLICES:
         for mode in ("captured", "eager"):
-            log(f"sharded {cell}: {mode} rate "
-                f"{rates[cell][mode] / rates['plain'][mode]:.3f} x "
-                f"single-device plain's {mode} rate in the same turns")
+            ratio = (rates[cell][mode]["median"]
+                     / rates["plain"][mode]["median"])
+            log(f"sharded {cell}: {mode} rate {ratio:.3f} x single-device "
+                f"plain's {mode} rate in the same turns")
 
 
 def phase_driver_sharded(card, counts, rows_one):
@@ -2335,7 +2266,7 @@ def phase_diagnostics(card):
                                                                       4)),
         "tet 2^3 p=3": lambda: (tgv_input(order=3), periodic_tet_mesh(2, 2,
                                                                       2)),
-        "tri+quad 6^2 p=3": lambda: (vortex_input(order=3),
+        "tri+quad 6^2 p=3": lambda: (bench.mixed_input(order=3),
                                      periodic_mixed_mesh_2d(6, 6, -10, 10,
                                                             -10, 10)),
     }
@@ -2586,7 +2517,7 @@ def phase_long_channel(card, counts):
             row = s.residual_norm(1)
             gold = np.asarray(TORCH_GOLDENS[
                 "channel_bf1" if step == 20 else "channel_bf1_100"])
-            rtol = CHANNEL_RTOL if step == 20 else CHANNEL_BF1_RTOL_100
+            rtol = bench.CHANNEL_RTOL if step == 20 else CHANNEL_BF1_RTOL_100
             rel = np.abs(row - gold) / np.abs(gold)
             log(f"long channel_bf1 step {step} residual row "
                 f"[{', '.join(f'{v:.12e}' for v in row)}], rel err per "
@@ -2671,10 +2602,12 @@ def main():
     phase_sem(card, *runs["sem"])
     log_memory("the other slices")
     rates = phase_rates(card, runs)
+    phase_bench(card, counts, rates["plain"]["captured"]["median"])
+    log_memory("the bench entry point")
     phase_sharded(card, counts, runs["plain"])
     log_memory("the sharded cells")
     rows_one = phase_driver(card, runs["plain"][0],
-                            rates["plain"]["captured"])
+                            rates["plain"]["captured"]["median"])
     phase_driver_sharded(card, counts, rows_one)
     phase_diagnostics(card)
     log_memory("the driver and diagnostics")
@@ -2688,7 +2621,7 @@ def main():
             f"{g['capture_s']:.3f} s")
     log(f"chip_smoke: phases 1-8 in {time.perf_counter() - t0:.1f} s")
     loaded = [m for m in sys.modules
-              if m.split(".")[0] in ("jax", "jaxlib", "hifiles_tpu")]
+              if m.split(".")[0] in ("jax", "jaxlib", "hifiles_tpu", "bench")]
     if loaded:
         raise AssertionError(f"chip_smoke imported {sorted(loaded)[:5]}")
     import torch

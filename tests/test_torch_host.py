@@ -81,7 +81,7 @@ import sys
 
 class BlockJax:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "hifiles_tpu"):
+        if name.split(".")[0] in ("jax", "jaxlib", "hifiles_tpu", "bench"):
             raise ImportError("import blocked: " + name)
         return None
 
@@ -93,8 +93,8 @@ torch.set_num_threads(1)
 import hifiles_tpu_torch as ht
 from chip_smoke import (channel_input, duct_mesh, make_solver,
                         mixed_channel_mesh, mixed_wall_mesh,
-                        periodic_tri_mesh, quad_wall_input, tgv_input,
-                        vortex_input)
+                        periodic_tri_mesh, quad_wall_input, tgv_input)
+from hifiles_tpu_torch.bench import mixed_input as vortex_input
 for name in ("plain", "smag", "overint", "rans", "shock"):
     p = tgv_input(order=2, config=name)
     s = make_solver(p, ht.periodic_hex_mesh(3, 3, 3), name, "cpu",
@@ -237,8 +237,18 @@ s = ht.Solver(p, ht.channel_hex_mesh(2, 2, 2), device="cpu",
               dtype=torch.float64)
 s.run(2, dt=p.dt)
 assert p.body_force_type == 1 and np.isfinite(s.mdot_old)
-loaded = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "hifiles_tpu"))
+# the benchmark entry point: one configuration at a toy size, and main's
+# refusal of a name it does not know
+from hifiles_tpu_torch import bench
+r = bench.run_config("mixed", device="cpu", repeats=1, steps=1, order=1, n=2)
+assert r["value"] > 0 and np.isfinite(r["row"]).all() and not r["gated"]
+try:
+    bench.main(["--device"])
+    raise AssertionError("bench.main took an option")
+except SystemExit:
+    pass
+blocked = ("jax", "jaxlib", "hifiles_tpu", "bench")
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in blocked)
 assert not loaded, loaded
 print("NO_JAX_OK")
 """
@@ -257,8 +267,9 @@ def test_port_runs_with_jax_blocked():
     hifiles_tpu_torch`` on a tiny deck on the CPU, single-device and with
     ``--devices 2``; and the long runs' entry points at toy sizes
     (scripts/validate_torch_tgv.py's validate, chip_smoke.py's Sod tube
-    and type-1 forced channel), with every import of JAX and of the JAX
-    package hifiles_tpu refused."""
+    and type-1 forced channel) and the benchmark entry point
+    hifiles_tpu_torch.bench, with every import of JAX, of the JAX package
+    hifiles_tpu and of the root bench.py refused."""
     env = dict(os.environ, OMP_NUM_THREADS="1")
     res = subprocess.run([sys.executable, "-c", _NO_JAX, ROOT],
                          capture_output=True, text=True, env=env,
