@@ -125,6 +125,14 @@ comparison asks for (``graph=False``):
                t = 14, 28,000 steps from one capture, held to the JAX
                package's dissipation curve (validation/tgv_re1600.json)
                and to validate_tgv.py's PASS rule on the DNS peak;
+  multicard - with more than one visible card, the multi-card paths of
+               scripts/multicard_torch.py: `plain` x4, `channel` x3 and
+               `mixed3d` x4 with each card capturing its own shards'
+               segments of the step (gated, bit for bit the same shards on
+               one card and the eager step, their rates), and the driver
+               with --devices 4 on the cards (history held to the
+               single-device run's, restart continued); on one card one
+               line on stderr saying it was not run;
   9. checks  - no module of JAX, of the JAX package or the root bench.py
                was imported; the graph phase's summary, and the card's
                peak reserved memory and the wall seconds after each phase.
@@ -1994,7 +2002,8 @@ def small_sharded():
 def make_sharded(p, mesh, n, device, dtype):
     """The port's ShardedSolver, or its ShardedMixedSolver for a mesh of
     several element types or of prisms, in ``n`` shards on ``device``
-    (select_devices: on the card, round-robin over the visible cards)."""
+    (select_devices: "cuda" round-robin over the visible cards, "cuda:0"
+    all on the first, as the one-card phases place them)."""
     import numpy as np
     from hifiles_tpu_torch import PRISM
     from hifiles_tpu_torch.parallel import (ShardedMixedSolver,
@@ -2017,7 +2026,7 @@ def phase_sharded_small(counts):
     from hifiles_tpu_torch.solver.volume import volume_tdisf
     f64 = torch.float64
     for name, (p, mesh, n) in small_sharded().items():
-        gpu = make_sharded(p, mesh, n, "cuda", f64)
+        gpu = make_sharded(p, mesh, n, "cuda:0", f64)
         cpu = make_sharded(p, mesh, n, "cpu", f64)
         one = make_solver(p, mesh, name, "cuda", f64)
         if one.turb_inlet is not None:
@@ -2077,7 +2086,7 @@ def phase_sharded(card, counts, plain):
     for cell, (name, n) in SHARDED_SLICES.items():
         p, mesh = slice_case(name)
         t0 = time.perf_counter()
-        s = make_sharded(p, mesh, n, "cuda", torch.float32)
+        s = make_sharded(p, mesh, n, "cuda:0", torch.float32)
         if name == "channel":
             ic = s.snapshot()
         torch.cuda.synchronize()
@@ -2148,6 +2157,7 @@ def phase_driver_sharded(card, counts, rows_one):
     t0 = time.perf_counter()
     out, launches, wall = run_driver(os.path.join(d4, "run.deck"), d4,
                                      "--devices", str(DRIVER_SHARDS),
+                                     "--device", "cuda:0",
                                      "--profile")
     total = time.perf_counter() - t0
     if not re.search(r"^run path: SoA \(fast\) captured$", out, re.M):
@@ -2218,6 +2228,33 @@ def phase_driver_sharded(card, counts, rows_one):
                              f"{segments} segments by the sharded driver, "
                              f"expected >= {need} and "
                              f"{DRIVER_SHARDS * need}")
+
+
+def phase_multicard():
+    """The multi-card paths of scripts/multicard_torch.py, when the machine
+    shows more than one card: its cells (`plain` x4, `channel` x3,
+    `mixed3d` x4, each card capturing its own shards' segments of the
+    step, gated and held to the same shards on one card and to the eager
+    step bit for bit, with their rates) and its driver part (``--devices
+    4`` on the cards, its history held to the single-device run's, its
+    restart continued); any miss raises.  On one card, one line on stderr
+    saying that the phase was not run."""
+    import torch
+    k = torch.cuda.device_count()
+    if k < 2:
+        print(f"chip_smoke: multicard phase not run: {k} visible card (it "
+              "needs 2 or more)", file=sys.stderr, flush=True)
+        return
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import multicard_torch
+    for name in multicard_torch.card_names():
+        log(f"multicard: card {name}")
+    for rec in multicard_torch.run_cells():
+        log(f"multicard {rec['cell']}: captured rate "
+            f"{rec['rates'][rec['cell']]['captured']['median']:.6e} "
+            f"DOF*RK-stage/s, the same shards on one card "
+            f"{rec['rates'][rec['cell'] + ' on one card']['captured']['median']:.6e}")
+    multicard_torch.run_driver_part()
 
 
 def phase_diagnostics(card):
@@ -2611,6 +2648,8 @@ def main():
     phase_driver_sharded(card, counts, rows_one)
     phase_diagnostics(card)
     log_memory("the driver and diagnostics")
+    phase_multicard()
+    log_memory("the multi-card paths")
     phase_long(card, counts)
     log_memory("the long runs")
     for name, g in GRAPHS.items():

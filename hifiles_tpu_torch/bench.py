@@ -282,8 +282,10 @@ def gate(name, row):
 
 
 def _sync(s):
+    """Wait for every card that ``s``'s shards sit on."""
     if s.device.type == "cuda":
-        torch.cuda.synchronize()
+        for dev in dict.fromkeys(getattr(s, "devices", [s.device])):
+            torch.cuda.synchronize(dev)
 
 
 def step_kernels(s, dt, graph=True):
@@ -294,10 +296,10 @@ def step_kernels(s, dt, graph=True):
     from torch.profiler import ProfilerActivity, profile
     if graph and s._graph is None:
         s.run(1, dt=dt)
-    torch.cuda.synchronize()
+    _sync(s)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         s.run(1, dt=dt, graph=graph)
-        torch.cuda.synchronize()
+        _sync(s)
     cuda = torch.autograd.DeviceType.CUDA
     names = [ev.name for ev in prof.events() if ev.device_type == cuda]
     return len(names), sum(1 for n in names if "volume_tdisf" in n)

@@ -382,4 +382,39 @@ int hft_volume_tdisf_f64(const HftVolumeSegment* segs, int n_seg,
   return launch<double>(segs, n_seg, args, device, stream);
 }
 
+// The multi-card step's halo copies (parallel/cards.py), not a kernel.
+//
+// Whether card ``device`` can read card ``peer``'s memory directly; when
+// it can, enables that access in ``device``'s primary context (an access
+// already enabled counts as enabled).  Returns 1 when enabled, 0 when the
+// pair has no peer access, or -(cudaError_t) on an error.
+int hft_peer_enable(int device, int peer) {
+  int can = 0;
+  cudaError_t rc = cudaDeviceCanAccessPeer(&can, device, peer);
+  if (rc != cudaSuccess) return -static_cast<int>(rc);
+  if (!can) return 0;
+  rc = cudaSetDevice(device);
+  if (rc == cudaSuccess) rc = cudaDeviceEnablePeerAccess(peer, 0);
+  if (rc == cudaErrorPeerAccessAlreadyEnabled) {
+    cudaGetLastError();
+    rc = cudaSuccess;
+  }
+  return rc == cudaSuccess ? 1 : -static_cast<int>(rc);
+}
+
+// ``bytes`` from ``src`` on another card to ``dst`` on card
+// ``dst_device``, issued on ``stream``, a stream of ``dst_device``: a
+// copy between the cards' unified addresses (cudaMemcpyDefault), over
+// NVLink once hft_peer_enable has enabled the pair.  (cudaMemcpyPeerAsync
+// cannot be captured.)  Returns a cudaError_t (0 = cudaSuccess).
+int hft_peer_copy(void* dst, int dst_device, const void* src, size_t bytes,
+                  void* stream) {
+  cudaError_t rc = cudaSetDevice(dst_device);
+  if (rc == cudaSuccess) {
+    rc = cudaMemcpyAsync(dst, src, bytes, cudaMemcpyDefault,
+                         static_cast<cudaStream_t>(stream));
+  }
+  return static_cast<int>(rc);
+}
+
 }  // extern "C"

@@ -18,8 +18,10 @@ compute_dt, gradient_fn, sensor_fn and residual_norm run eagerly between
 chunks.  ``--devices N``
 runs the mesh as N shards (parallel.ShardedSolver, or
 parallel.ShardedMixedSolver for mixed and prism meshes) placed by
-parallel.select_devices on the cards of ``--device`` (round-robin), or on
-the CPU with ``--device cpu``; the writers read the single-device twin,
+parallel.select_devices on the cards of ``--device`` (round-robin, each
+card capturing its own segments of the step; all on one card with
+``--device cuda:0``), or on the CPU with ``--device cpu``; the timed
+parts wait for every card; the writers read the single-device twin,
 into which the shards' state is gathered (driver.py:52-62, :85-131 of the
 JAX package), and a restart is scattered back onto the shards.  A deck with
 ``restart_ascii`` restarts from the ASCII file the run dumps
@@ -125,6 +127,12 @@ def main(argv=None):
             from .solver.solver import Solver
             solver = io_solver = Solver(p, mesh, device=device, dtype=dtype)
     on_card = solver.device.type == "cuda"
+
+    def wait_cards():
+        """Wait for every card the solver's shards sit on."""
+        for dev in dict.fromkeys(getattr(solver, "devices",
+                                         [solver.device])):
+            torch.cuda.synchronize(dev)
     print(f"solver: order {p.order}, {solver.n_fields} fields, "
           f"{solver.dof} DOF/field"
           + (f", {n_dev} devices" if n_dev else ""))
@@ -188,7 +196,7 @@ def main(argv=None):
             acts = [ProfilerActivity.CPU]
             if on_card:
                 acts.append(ProfilerActivity.CUDA)
-                torch.cuda.synchronize()
+                wait_cards()
             prof = torch.profiler.profile(activities=acts)
             prof.start()
         # the first chunk also pays the process's first launches
@@ -199,7 +207,7 @@ def main(argv=None):
                               if hasattr(solver, "compute_dt")
                               else sync().compute_dt()))
             if on_card:
-                torch.cuda.synchronize()
+                wait_cards()
         if i == i0:
             print(f"run path: {solver.run_path}")
         i += n
@@ -252,7 +260,7 @@ def main(argv=None):
                     write_vtu(sync(), outdir, i)
         if prof is not None and i - profile_at >= n:
             if on_card:
-                torch.cuda.synchronize()
+                wait_cards()
             prof.stop()
             prof.export_chrome_trace(os.path.join(outdir, "torch_trace"))
             prof = None

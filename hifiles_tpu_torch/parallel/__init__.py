@@ -1,6 +1,8 @@
 """Element-sharded runs: ShardedSolver and ShardedMixedSolver, one
-controller driving N shards of the mesh (soa_sharding.py), and
-``select_devices``, which places the shards on the cards."""
+controller driving N shards of the mesh (soa_sharding.py), each card
+capturing its own segments of the step when the shards sit on several
+(cards.py), and ``select_devices``, which places the shards on the
+cards."""
 
 from __future__ import annotations
 

@@ -500,15 +500,57 @@ class ShardedSolver(ShardedLoop):
         self._setup_inlet(block, plane_index, (start,), self._inlet_rows,
                           slots=slots)
 
+    def _inlet_parts(self, u):
+        """(shard, the flux-point rows (F, n) of its inlet points) of each
+        shard that has some, on its device."""
+        for s, (res, idx) in enumerate(zip(self._shard_res, self._in_slots)):
+            if idx is not None:
+                yield s, res.flux_point_rows(self._part_views(u, s)
+                                             ).index_select(1, idx)
+
     def _inlet_rows(self, u):
         """The flux-point rows (F, points) of the inlet's points, gathered
         from the shards onto the controller's device."""
-        return torch.cat([
-            res.flux_point_rows(self._part_views(u, s)).index_select(
-                1, idx).to(self.device)
-            for s, (res, idx) in enumerate(zip(self._shard_res,
-                                               self._in_slots))
-            if idx is not None], dim=1)
+        return torch.cat([r.to(self.device) for _, r in self._inlet_parts(u)],
+                         dim=1)
+
+    def _card_inlet_rows(self, copies):
+        """``_inlet_rows`` in a multi-card step, before its cut: each
+        shard's inlet rows, those of shards on other cards than the
+        controller's copied into persistent buffers, with the copies that
+        bring them to the controller's card appended to ``copies``.
+        Returns the parts to concatenate after the cut."""
+        rows = []
+        for s, r in self._inlet_parts(self.u_soa):
+            k = self._card_of[s]
+            if k != 0:
+                src = self._cbuf(("rows", s), r, k)
+                dst = self._cbuf(("rows in", s), r, 0)
+                src.copy_(r)
+                copies.append((src, k, dst, 0))
+                r = dst
+            rows.append(r)
+        return rows
+
+    def _card_scatter_fluc(self):
+        """``_shard_fluc`` in a multi-card step, once per step after the
+        inlet's update: each shard's part of the fluctuations, sent by a
+        cut to the shards on other cards than the controller's, held in
+        ``_card_fluc`` for the step's stages."""
+        d, nfp = self._fluc.shape[0], self.base.block.bdy_slot.shape[1]
+        copies, self._card_fluc = [], []
+        for s, (start, Fb) in enumerate(self._fluc_cols):
+            part = self._fluc[:, start:start + nfp * Fb]
+            k = self._card_of[s]
+            if Fb and k != 0:
+                src = self._cbuf(("fluc", s), part, 0)
+                dst = self._cbuf(("fluc in", s), part, k)
+                src.copy_(part)
+                copies.append((src, 0, dst, k))
+                part = dst
+            self._card_fluc.append(part.view(d, nfp, Fb) if Fb else None)
+        if copies:
+            self._cstep.cut(copies)
 
     def _shard_fluc(self, fluc, s):
         """Shard s's part (d, nfp, Fb_s) of the inlet's fluctuations on its

@@ -14,9 +14,12 @@ flux-point states, then the element-side normal viscous flux qn; and
 once at its volume stage, where the controller launches the volume
 kernel once per card for the blocks of all its shards.  A shard
 receives from shard ``(s - o) % n`` for each ring offset ``o``, each
-buffer moved with ``Tensor.to(device, non_blocking=True)``, which is the
-tensor itself when both shards share a device; so N shards on one card
-run exactly the code of N cards.  The JAX package's face groups, pools,
+buffer moved with ``Tensor.to(device, non_blocking=True)`` in the eager
+loop, which is the tensor itself when both shards share a device.  With
+shards on several cards a captured run cuts the step at its exchanges
+(parallel/cards.py): each card captures its own segments, and the
+buffers that cross cards go by peer copies between persistent buffers
+(``ShardedLoop._card_exchange``).  The JAX package's face groups, pools,
 ``sel`` encoding and padding clones exist for shard_map's one static shape
 and have no counterpart here.
 """
@@ -24,16 +27,20 @@ and have no counterpart here.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
 
 from ..solver.elements import match_fpts_grouped
+from ..solver.graph import CudaCards
 from ..solver.residual_soa import (BlockStages, FaceArrays, Physics,
                                    check_coverage, make_face_residual,
                                    orient_faces)
 from ..solver.solver import BlockLoop
-from ..solver.volume import VolumeRequest, volume_tdisf_groups
+from ..solver.volume import (VolumeRequest, captured_launches, count_replay,
+                             volume_tdisf_groups)
+from .cards import CardStep
 
 
 def shard_faces(conn, n, side, pf_flat, gslots):
@@ -271,6 +278,16 @@ class ShardedLoop(BlockLoop):
             self._shard_shapes.append([(b.ops.n_upts, b.n_eles)
                                        for _, _, b in subs[s]])
         self._place = [(i, ids) for sub in subs for i, ids, _ in sub]
+        self._block_shard = [s for s, sub in enumerate(subs) for _ in sub]
+        # the cards: each distinct device, the controller's first; with
+        # shards on several, ``run`` captures each card's segments of the
+        # step (parallel/cards.py) through ``_card_backend`` (a test may
+        # set stand-ins with their own card map)
+        self._cards = list(dict.fromkeys(self.devices))
+        self._card_of = [self._cards.index(d) for d in self.devices]
+        self._card_backend = None
+        self._cstep = self._reps = None
+        self._cbufs, self._card_fluc = {}, None
         blocks = [b for sub in subs for _, _, b in sub]
         sels = [base._sels[i][ids] for i, ids in self._place]
         devs = [dev for dev, sub in zip(self.devices, subs) for _ in sub]
@@ -320,24 +337,234 @@ class ShardedLoop(BlockLoop):
         the shards' grouped volume launches, and so on to the end.
         ``ramp``, a 0-d tensor on the controller's device, and ``fluc``
         (``_shard_fluc``; only a single-type run has an inlet) reach each
-        shard on its device."""
+        shard on its device; in a multi-card step, from the card's replica
+        of the ramp counter and the fluctuations sent to it at the step's
+        start (``_card_scatter_fluc``), and the exchanges are cuts."""
         out = self._alloc()
+        cs = self._cstep
         gens = []
         for s, (res, dev) in enumerate(zip(self._shard_res, self.devices)):
-            fl = None if fluc is None else self._shard_fluc(fluc, s)
-            gens.append(res.stages(
-                self._part_views(u, s), fl,
-                None if ramp is None else ramp.to(dev),
-                out=self._part_views(out, s)))
+            if cs is None:
+                fl = None if fluc is None else self._shard_fluc(fluc, s)
+                rp = None if ramp is None else ramp.to(dev)
+            else:
+                fl = None if fluc is None else self._card_fluc[s]
+                rp = (None if ramp is None
+                      else self._reps["k"][self._card_of[s]])
+            gens.append(res.stages(self._part_views(u, s), fl, rp,
+                                   out=self._part_views(out, s)))
         msgs = [next(g) for g in gens]
         while msgs[0] is not None:
             if isinstance(msgs[0], VolumeRequest):
                 # every shard's volume stage, one launch per card
                 recv = volume_tdisf_groups(msgs)
-            else:
+            elif cs is None:
                 recv = self._exchange(msgs)
+            else:
+                recv = self._card_exchange(msgs)
             msgs = [_advance(g, r) for g, r in zip(gens, recv)]
         return out
+
+    # ------------------------------------------------------------------
+    # shards on several cards: the step captured per card, cut at its
+    # cross-card points (parallel/cards.py)
+    def _n_cards(self):
+        return len(self._cards)
+
+    def _block_card(self, i):
+        return self._card_of[self._block_shard[i]]
+
+    def _cbuf(self, key, like, k):
+        """The persistent buffer ``key`` shaped as ``like`` on card k: a
+        cut's source or destination, allocated by the warm-up step, never
+        inside a capture (a peer reads it across every replay)."""
+        buf = self._cbufs.get(key)
+        if buf is None:
+            if self._cstep.mode == "capture":
+                raise RuntimeError(f"multi-card step: buffer {key} first "
+                                   "asked for inside a capture")
+            buf = self._cbufs[key] = torch.empty(
+                like.shape, dtype=like.dtype, device=self._cards[k])
+        return buf
+
+    def _card_exchange(self, msgs):
+        """``_exchange`` as a cut: each part that crosses cards copied into
+        its persistent send buffer (the halo slot alternating from one
+        exchange to the next), peer-copied at the cut into its receive
+        buffer on the receiving card; parts between shards of one card
+        taken as ``_exchange`` takes them."""
+        cs = self._cstep
+        slot = cs.next_slot()
+        copies, parts_of = [], []
+        for s, plan in enumerate(self._recv):
+            ks, parts = self._card_of[s], []
+            for t, a, b in plan:
+                part, kt = msgs[t][:, a:b], self._card_of[t]
+                if kt != ks:
+                    src = self._cbuf(("halo", slot, t, s), part, kt)
+                    dst = self._cbuf(("halo in", slot, t, s), part, ks)
+                    src.copy_(part)
+                    copies.append((src, kt, dst, ks))
+                    part = dst
+                parts.append(part)
+            parts_of.append(parts)
+        if copies:
+            cs.cut(copies)
+        return [torch.cat(parts, dim=1) if parts else msgs[s][:, :0]
+                for s, parts in enumerate(parts_of)]
+
+    def _card_replicas(self):
+        """Each card's copies of the step's scalars, refreshed from the
+        controller's (card 0's are the buffers themselves): dt (its
+        minimum), the ramp counter, the averaging time and the forcing's
+        mass-flux memory; and its body-force column and unit columns.
+        Every card advances its copies as the controller advances its own,
+        with the same arithmetic on the same values, so that no scalar
+        crosses a card inside the step."""
+        n = len(self._cards)
+        if self._reps is None:
+            zero = lambda x, k: torch.zeros_like(x, device=self._cards[k])
+            bufs = dict(dt=self._dt_s, k=self._k, t_sim=self._t_sim,
+                        mdot=self._mdot_old)
+            self._reps = {name: [x] + [zero(x, k) for k in range(1, n)]
+                          for name, x in bufs.items()}
+            if self._forcing:
+                self._reps["bf"] = [self._bf] + [zero(self._bf, k)
+                                                 for k in range(1, n)]
+                self._reps["e"] = [self._force_e] + [
+                    tuple(e.to(self._cards[k]) for e in self._force_e)
+                    for k in range(1, n)]
+        for name in ("dt", "k", "t_sim", "mdot"):
+            first = self._reps[name][0]
+            for x in self._reps[name][1:]:
+                x.copy_(first)
+
+    def _bf_on(self, i, v):
+        if self._cstep is None:
+            return super()._bf_on(i, v)
+        return self._reps["bf"][self._block_card(i)]
+
+    def _step_body(self):
+        """One step: BlockLoop's, or in a multi-card step the same program
+        with its cross-card points as cuts."""
+        if self._cstep is None:
+            return super()._step_body()
+        cs, dt = self._cstep, self._dt_s
+        if self._pre_step is not None:
+            self._pre_step(self.u_soa)
+        copies, rows, parts = [], None, None
+        if self.turb_inlet is not None:
+            rows = self._card_inlet_rows(copies)
+        if self._forcing:
+            parts = self._card_force_parts(copies)
+        if copies:
+            cs.cut(copies)
+        if self.turb_inlet is not None:
+            pos, sgn, _ = self._ti_state
+            (new_pos, new_sgn, _), fluc = self.turb_inlet.update(
+                self._ti_state, torch.cat(rows, dim=1), dt)
+            if new_pos is not pos:
+                pos.copy_(new_pos)
+                sgn.copy_(new_sgn)
+            self._fluc.copy_(fluc)
+            self._card_scatter_fluc()
+        if self._forcing:
+            self._card_body_force(parts)
+        self._step(self.u_soa, self.reg_soa, self._dt_rk)
+        if self._featured:
+            reps = self._reps
+            for t_sim, k, dt_k in zip(reps["t_sim"], reps["k"], reps["dt"]):
+                t_sim += dt_k
+                k += 1.0
+            if self._avg:
+                self._card_average()
+
+    def _card_force_parts(self, copies):
+        """The forcing's plane integrals, each block's on its card in a
+        persistent buffer, and the copies that give every card every
+        block's (the JAX psum, sharding.py:1081-1082)."""
+        views, parts = self._views(self.u_soa), {}
+        for i, _, _, W in self._force:
+            ki = self._block_card(i)
+            part = (W[:, None] * views[i][:, :2]).sum(dim=(0, 2))
+            src = parts[i] = self._cbuf(("force", i), part, ki)
+            src.copy_(part)
+            for k in range(len(self._cards)):
+                if k != ki:
+                    copies.append((src, ki, self._cbuf(("force in", i, k),
+                                                       part, k), k))
+        return parts
+
+    def _card_body_force(self, parts):
+        """``_body_force`` on every card from every block's integrals,
+        summed in block order as the controller sums them: the card's
+        body-force column and mass-flux memory."""
+        reps = self._reps
+        for k in range(len(self._cards)):
+            acc = None
+            for i, _, _, _ in self._force:
+                part = (parts[i] if self._block_card(i) == k
+                        else self._cbufs[("force in", i, k)])
+                acc = part if acc is None else acc + part
+            reps["bf"][k].copy_(self._force_column(
+                acc, reps["dt"][k], reps["mdot"][k], reps["e"][k]))
+
+    def _card_average(self):
+        """``_average`` with each card's copies of the averaging time and
+        dt."""
+        reps, coef = self._reps, {}
+        for i, (u, avg) in enumerate(zip(
+                self._views(self.u_soa),
+                self._views(self.u_avg_soa, len(self.p.average_fields)))):
+            k = self._block_card(i)
+            if k not in coef:
+                dt = reps["dt"][k]
+                t_rel = reps["t_sim"][k] - self.p.spinup_time
+                coef[k] = (t_rel <= dt, (t_rel - dt) / t_rel, dt / t_rel)
+            self._average_block(u, avg, lambda: coef[k])
+
+    def _make_run_chunk(self):
+        """BlockLoop's chunk with every shard on one card; with shards on
+        several, ``chunk(n_steps)``: one warm-up step, then the step
+        captured per card (CardStep) and replayed, the cards' copies of
+        the step's scalars refreshed first.  None on the CPU."""
+        if len(self._cards) == 1:
+            return super()._make_run_chunk()
+        backend = self._card_backend
+        if backend is None:
+            if self.device.type != "cuda":
+                return None
+            backend = self._card_backend = CudaCards(self._cards)
+        draws = None if self._ti_state is None else self._ti_state[2]
+        key = (self._dt_kind, draws)
+        if self._graph is not None and self._graph_key != key:
+            self.release_graph()
+
+        def chunk(n_steps):
+            left = n_steps
+            self._card_replicas()
+            if self._graph is None and left > 0:
+                gen = getattr(draws, "gen", None)
+                g = CardStep(backend, self, len(self._cards),
+                             [] if gen is None else [gen])
+                self._stage_draws()
+                g.warm_up(self._step_body)
+                left -= 1
+                t0 = time.perf_counter()
+                self._graph_launches = captured_launches(
+                    lambda: g.capture(self._step_body))
+                self.capture_seconds = time.perf_counter() - t0
+                self._graph, self._graph_key = g, key
+                self.captures += 1
+                # a stand-in's capture runs the program and returns the
+                # state; the copies follow it
+                self._card_replicas()
+            for _ in range(left):
+                self._stage_draws()
+                self._graph.replay(self._step_body)
+                count_replay(self._graph_launches)
+            self.replays += left
+        return chunk
 
     # ------------------------------------------------------------------
     def _split(self, arrays):

@@ -22,7 +22,11 @@ own until ``release``.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
+
+from ..backend import kernel_library
 
 
 class CudaStepGraph:
@@ -61,3 +65,124 @@ class CudaStepGraph:
 
     def release(self):
         self.graph.reset()
+
+
+_PEERS = set()
+
+
+def enable_peers(devices):
+    """Enable peer access between every ordered pair of the cards
+    ``devices`` (once per pair and process, in the kernel library's
+    runtime: the cards' primary contexts, which PyTorch uses too) and print
+    the access matrix; raises where a pair has none, since a copy between
+    them would be staged through the host."""
+    lib = kernel_library()
+    lib.hft_peer_enable.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.hft_peer_enable.restype = ctypes.c_int
+    idx = [torch.device(d).index for d in devices]
+    todo = [(a, b) for a in idx for b in idx
+            if a != b and (a, b) not in _PEERS]
+    if not todo:
+        return
+    for a, b in todo:
+        with torch.cuda.device(a):
+            rc = lib.hft_peer_enable(a, b)
+        if rc != 1:
+            raise RuntimeError(f"card {a} cannot read card {b}'s memory "
+                               f"(hft_peer_enable: {rc}): no peer access, "
+                               "so the halo copies would go through the "
+                               "host")
+        _PEERS.add((a, b))
+    rows = ["".join("x" if a == b or (a, b) in _PEERS else "."
+                    for b in idx) for a in idx]
+    print(f"peer access between cards {idx}: {' '.join(rows)}")
+
+
+class CudaCards:
+    """The cards of a multi-card step (parallel.cards.CardStep): on each
+    card a capture stream and one memory pool (``graph_pool_handle``)
+    shared by all its segments' graphs, which are captured one after
+    another and replayed in that order, so the pool's blocks pass safely
+    from one segment to the next; events; and the peer copies of the
+    halos, issued through the kernel library on the destination card's
+    stream (a memcpy node of the graph being captured there).  Peer
+    access is enabled for every pair on construction (enable_peers)."""
+
+    rerun = None
+
+    def __init__(self, devices):
+        from .volume import _library
+        self.devices = [torch.device(d) for d in devices]
+        enable_peers(self.devices)
+        for dev in self.devices:
+            _library(dev)    # hft_volume_prepare, before any capture
+        self.streams = [torch.cuda.Stream(d) for d in self.devices]
+        self.pools = [torch.cuda.graph_pool_handle() for _ in self.devices]
+        self._saved = None
+        self._copy = kernel_library().hft_peer_copy
+        self._copy.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                               ctypes.c_void_p, ctypes.c_size_t,
+                               ctypes.c_void_p]
+        self._copy.restype = ctypes.c_int
+
+    def current(self, k):
+        return torch.cuda.current_stream(self.devices[k])
+
+    def event(self):
+        return torch.cuda.Event()
+
+    def graph(self, k, generators=()):
+        g = torch.cuda.CUDAGraph()
+        for gen in generators:
+            g.register_generator_state(gen)
+        return g
+
+    def sync(self):
+        for dev in self.devices:
+            torch.cuda.synchronize(dev)
+
+    def enter(self, capture):
+        """Make each card's capture stream its current stream (after the
+        work on the current ones), with host syncs refused while
+        ``capture``."""
+        self._saved = [torch.cuda.current_stream(d) for d in self.devices]
+        for dev, s, cur in zip(self.devices, self.streams, self._saved):
+            s.wait_stream(cur)
+            with torch.cuda.device(dev):
+                torch.cuda.set_stream(s)
+        self._mode = torch.cuda.get_sync_debug_mode()
+        if capture:
+            torch.cuda.set_sync_debug_mode("error")
+
+    def leave(self):
+        torch.cuda.set_sync_debug_mode(self._mode)
+        for dev, s, cur in zip(self.devices, self.streams, self._saved):
+            with torch.cuda.device(dev):
+                torch.cuda.set_stream(cur)
+            cur.wait_stream(s)
+        self._saved = None
+
+    def begin(self, k, graph):
+        with torch.cuda.device(self.devices[k]):
+            graph.capture_begin(pool=self.pools[k],
+                                capture_error_mode="relaxed")
+
+    def end(self, k, graph):
+        with torch.cuda.device(self.devices[k]):
+            graph.capture_end()
+
+    def copy(self, dst, kd, src, ks):
+        """``src`` (card ``ks``) into ``dst`` (card ``kd``), contiguous
+        tensors of one size, on card kd's current stream: a
+        cudaMemcpyAsync between the cards' unified addresses (the
+        library's hft_peer_copy), a memcpy node when the stream captures,
+        over NVLink."""
+        dd = self.devices[kd]
+        with torch.cuda.device(dd):
+            rc = self._copy(
+                dst.data_ptr(), dd.index, src.data_ptr(),
+                dst.numel() * dst.element_size(),
+                torch.cuda.current_stream(dd).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"peer copy {self.devices[ks]} -> {dd} "
+                               f"failed: CUDA error {rc}")

@@ -327,8 +327,8 @@ class BlockLoop:
             if self._forcing:
                 # the body force, an (F, 1) column (ref:src/eles.cpp:
                 # 1095-1247 adds the source to every stage's rhs)
-                for v in self._views(r):
-                    v.add_(self._bf.to(v.device))
+                for i, v in enumerate(self._views(r)):
+                    v.add_(self._bf_on(i, v))
             return r
         self._step = make_step_fn(stage_rhs, p.adv_type,
                                   post_stage=post_stage)
@@ -392,6 +392,14 @@ class BlockLoop:
         eE = torch.zeros((nF, 1), dtype=dt_, device=dev)
         eE[d + 1] = 1.0
         self._force_e = (e1, eE)
+
+    def _bf_on(self, i, v):
+        """The body-force column that block i's rhs ``v`` adds."""
+        return self._bf.to(v.device)
+
+    def _n_cards(self):
+        """The cards the blocks sit on."""
+        return len(set(self._devs))
 
     # ------------------------------------------------------------------
     def _views(self, x, K=None):
@@ -519,17 +527,19 @@ class BlockLoop:
         On the card the steps run through ``_make_run_chunk``, one step
         captured as a CUDA graph and replayed (``run_path`` ends in
         "captured"); ``graph=False`` runs the same step eagerly, for
-        comparisons and profiles ("eager").  On the CPU, and with shards
-        on more than one device, the run is eager."""
+        comparisons and profiles ("eager").  On the CPU the run is eager.
+        With shards on N > 1 cards the path ends in "(shards on N
+        cards)", and each card replays its own segments of the step
+        (ShardedLoop, parallel/cards.py)."""
         dt = self.compute_dt() if dt is None else dt
         dt_min = self._load_dt(dt)
         chunk = self._make_run_chunk() if graph else None
         path = "SoA featured (fast)" if self._featured or \
             self.turb_inlet is not None else "SoA (fast)"
-        devs = set(self._devs)
+        n = self._n_cards()
         self.run_path = path + (" captured" if chunk is not None else
-                                " eager" if len(devs) == 1 else
-                                f" eager (shards on {len(devs)} devices)")
+                                " eager") + (f" (shards on {n} cards)"
+                                             if n > 1 else "")
         if self.run_path not in self._logged:
             self._logged.add(self.run_path)
             _log_run_path(type(self).__name__, self.run_path)
@@ -612,7 +622,7 @@ class BlockLoop:
         """The counterpart of the JAX ``_make_run_chunk`` (solver.py:
         279-482, multiblock.py:724-840): ``chunk(n_steps)`` advances
         n_steps steps as replays of one captured step, or None where the
-        run is eager (the CPU, or shards on several devices).
+        run is eager (the CPU); with shards on several cards, ShardedLoop's.
 
         The first call captures: one warm-up step runs eagerly on the
         capture stream (it loads the volume kernel's instantiations and
@@ -699,44 +709,57 @@ class BlockLoop:
         column from the mass flux through the -x inflow plane, and the
         mass-flux memory updated, on the device; the blocks' plane
         integrals are summed on the solver's device."""
-        p = self.p
         views = self._views(u)
         acc = None
         for i, _, _, W in self._force:
             part = (W[:, None] * views[i][:, :2]).sum(dim=(0, 2)).to(
                 self.device)
             acc = part if acc is None else acc + part
+        return self._force_column(acc, dt, self._mdot_old, self._force_e)
+
+    def _force_column(self, acc, dt, mdot, e):
+        """The body-force column from the summed plane integrals ``acc``
+        (rho_int, mflux), dt, the mass-flux memory ``mdot`` (updated) and
+        the unit columns ``e``, on their device."""
+        p = self.p
         rho_int, mflux = acc
         ubulk = torch.where(rho_int == 0, 0.0, mflux / rho_int)
         area = p.body_force_area
         if p.body_force_type == 1:
             bf1 = (p.body_force_mdot0 - mflux) / (area * dt)
         else:
-            bf1 = (p.body_force_mdot0 - 2.0 * mflux + self._mdot_old) \
-                / (area * dt)
-        self._mdot_old.copy_(mflux)
-        e1, eE = self._force_e
+            bf1 = (p.body_force_mdot0 - 2.0 * mflux + mdot) / (area * dt)
+        mdot.copy_(mflux)
+        e1, eE = e
         return e1 * bf1 + eE * (bf1 * ubulk)
 
     def _average(self, dt):
         """Running average after the step (solver.py:451-471;
         ref:src/eles.cpp:5676-5698), block by block."""
-        d, fields = self.n_dims, self.p.average_fields
         t_rel = self._t_sim - self.p.spinup_time
         a = (t_rel - dt) / t_rel
         b = dt / t_rel
         for u, avg in zip(self._views(self.u_soa),
-                          self._views(self.u_avg_soa, len(fields))):
+                          self._views(self.u_avg_soa,
+                                      len(self.p.average_fields))):
             on = lambda x: x.to(u.device)
-            rho = u[:, 0]
-            col = {"rho_average": lambda: rho,
-                   "u_average": lambda: u[:, 1] / rho,
-                   "v_average": lambda: u[:, 2] / rho,
-                   "w_average": lambda: u[:, 3] / rho,
-                   "e_average": lambda: u[:, d + 1] / rho}
-            cur = torch.stack([col[f_]() for f_ in fields], dim=1)
-            avg.copy_(torch.where(on(t_rel) <= dt, cur,
-                                  on(a) * avg + on(b) * cur))
+            self._average_block(u, avg, lambda: (on(t_rel) <= on(dt), on(a),
+                                                 on(b)))
+
+    def _average_block(self, u, avg, coef):
+        """One block's running averages ``avg`` from its state ``u``:
+        the current values where ``first``, else a * avg + b * current,
+        (first, a, b) = coef()."""
+        d, fields = self.n_dims, self.p.average_fields
+        rho = u[:, 0]
+        col = {"rho_average": lambda: rho,
+               "u_average": lambda: u[:, 1] / rho,
+               "v_average": lambda: u[:, 2] / rho,
+               "w_average": lambda: u[:, 3] / rho,
+               "e_average": lambda: u[:, d + 1] / rho}
+        cur = torch.stack([col[f_]() for f_ in fields], dim=1)
+        first, a, b = coef()
+        avg.copy_(torch.where(first, cur, a * avg + b * cur))
 
     def inflow_massflux(self):
         """(mass_flux, ubulk, next body force) through the -x cyclic

@@ -374,7 +374,8 @@ def _library(device):
         bind_entries(lib)
         lib.hft_volume_prepare.argtypes = [ctypes.c_int]
         lib.hft_volume_prepare.restype = ctypes.c_int
-        rc = lib.hft_volume_prepare(device.index)
+        with torch.cuda.device(device):
+            rc = lib.hft_volume_prepare(device.index)
         if rc != 0:
             raise RuntimeError(f"volume_tdisf: preparing the kernels on "
                                f"{device} failed: CUDA error {rc}")
@@ -516,7 +517,10 @@ def volume_tdisf_many(calls, prm: VolumeParams):
     outs = [torch.empty((D,) + tuple(c.u.shape), device=dev,
                         dtype=c.u.dtype) for c in calls]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    launch_segments(entry, calls, prm, outs, dev.index, stream)
+    # the library's own CUDA runtime selects ``dev`` for the launch, which
+    # makes it the thread's current card; the guard restores PyTorch's
+    with torch.cuda.device(dev):
+        launch_segments(entry, calls, prm, outs, dev.index, stream)
     return outs
 
 

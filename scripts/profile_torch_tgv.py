@@ -20,7 +20,13 @@ kernel's record only: wale, similarity, sutherland (the TGV deck with
 those options) and quad_channel_wm1, quad_rans (the walled quad channels,
 p=4, on 96 x 96 quads).  NAME:N runs the case
 element-sharded (parallel.ShardedSolver, or ShardedMixedSolver for the
-mixed meshes) in N shards on the one card, or on the CPU with --count-ops.
+mixed meshes) in N shards placed round-robin on the visible cards (on one
+card all N there; on several each card captures its own segments of the
+step), or on the CPU with --count-ops.  With shards on several cards it
+also prints, per card, the device busy and idle share of the traced wall,
+the microseconds per step the card waited on its peers (the gaps before
+the peer copies that open a segment) and the peer copies' GB/s (the
+bytes of the step's cuts over those copies' device time).
 
 With --count-ops it runs one step on the CPU (no GPU needed), on a small
 mesh of the same kind (the count does not depend on the element count),
@@ -208,21 +214,73 @@ def case(name, count_ops):
     return p, mesh
 
 
+def sync_all():
+    import torch
+    for d in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(d)
+
+
 def trace(s, dt, steps, graph):
     """Trace ``steps`` steps of ``s`` with torch.profiler (CPU and CUDA),
     captured (``graph``: replays) or eager, after 2 untraced steps of the
     same kind; returns (profiler, synchronised wall us)."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
     s.run(2, dt=dt, graph=graph)
-    torch.cuda.synchronize()
+    sync_all()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         s.run(steps, dt=dt, graph=graph)
-        torch.cuda.synchronize()
+        sync_all()
         wall_us = (time.perf_counter() - t0) * 1e6
     return prof, wall_us
+
+
+def per_card(s, prof, wall_us, steps):
+    """With shards on several cards: per card, the device busy share of
+    the traced wall, the us per step it waited on its peers (the gaps
+    before the peer copies that open a segment: each such copy waits on
+    the peers' events) and its peer copies' GB/s (the bytes the step's
+    cuts copy to it over their device time).  None on one card."""
+    import torch
+    cards = list(dict.fromkeys(getattr(s, "devices", [s.device])))
+    if len(cards) < 2:
+        return None
+    cuda = torch.autograd.DeviceType.CUDA
+    evs = collections.defaultdict(list)
+    for ev in prof.events():
+        if ev.device_type == cuda:
+            evs[ev.device_index].append(
+                (ev.time_range.start, ev.time_range.end, ev.name))
+    cut_bytes = collections.Counter()
+    for copies in (s._graph.cuts if s._graph is not None
+                   and hasattr(s._graph, "cuts") else []):
+        for src, _, _, kd in copies:
+            cut_bytes[kd] += src.numel() * src.element_size()
+    out = []
+    for k, dev in enumerate(cards):
+        rows = sorted(evs.get(dev.index, []))
+        busy = sum(b - a for a, b, _ in rows)
+        peer = lambda n: "PtoP" in n or "Peer" in n
+        wait = copy_us = 0.0
+        for i, (a, b, name) in enumerate(rows):
+            if peer(name):
+                copy_us += b - a
+                if i > 0 and not peer(rows[i - 1][2]):
+                    wait += max(0.0, a - rows[i - 1][1])
+        out.append(dict(card=str(dev), busy_share=busy / wall_us,
+                        idle_share=1 - busy / wall_us,
+                        peer_wait_us_per_step=wait / steps,
+                        peer_copy_us_per_step=copy_us / steps,
+                        peer_copy_gb_s=(cut_bytes[k] * steps / copy_us / 1e3
+                                        if copy_us else None)))
+        print(f"  card {dev}: busy {100 * busy / wall_us:.1f}%, idle "
+              f"{100 * (1 - busy / wall_us):.1f}% of the traced wall; "
+              f"waiting on peers {wait / steps:.1f} us/step; peer copies "
+              f"{copy_us / steps:.1f} us/step, {cut_bytes[k]} B/step"
+              + (f", {cut_bytes[k] * steps / copy_us / 1e3:.2f} GB/s"
+                 if copy_us else ""))
+    return out
 
 
 def report(name, mode, s, prof, wall_us, steps, out, card, chrome=False):
@@ -312,10 +370,10 @@ def main():
              + list(OPTION_CASES))
     card = None
     if not args.count_ops:
-        card = subprocess.run(
+        card = "; ".join(subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
-            check=True, timeout=60).stdout.strip()
+            check=True, timeout=60).stdout.strip().splitlines())
         print(card)
     summary = {}
     for item in args.config:
@@ -347,6 +405,9 @@ def main():
             summary[name][mode] = report(name, mode, s, prof, wall_us,
                                          args.steps, args.out, card,
                                          args.chrome)
+            cards = per_card(s, prof, wall_us, args.steps)
+            if cards is not None:
+                summary[name][mode]["cards"] = cards
         e, c = summary[name]["eager"], summary[name]["captured"]
         print(f"{name}: captured / eager wall per stage "
               f"{c['wall_us_per_stage'] / e['wall_us_per_stage']:.3f}, "

@@ -2,18 +2,26 @@
 """TGV Re=1600 validation run of the PyTorch port (hifiles_tpu_torch) on the
 card: the counterpart of scripts/validate_tgv.py.
 
-  python3 scripts/validate_torch_tgv.py [--out validation/tgv_re1600_torch.json]
+  python3 scripts/validate_torch_tgv.py [--n1 16] [--devices N]
+      [--t-end T] [--out validation/tgv_re1600_torch.json]
 
-Runs the reference's Taylor-Green deck (validate_tgv.py:44-63; 16^3 hexes,
-p=4, f32) to t = 14 on the captured path of the port's Solver
-(one step captured as a CUDA graph, 27,999 replays), samples TKE/vol every
-0.05 with the port's io.history.integral_quantities, and holds the
-dissipation curve -d(TKE)/dt against the JAX package's own run,
-validation/tgv_re1600.json (``compare``), including validate_tgv.py's PASS
-rule against the DNS peak recorded there.  Writes the JAX file's keys plus
+Runs the reference's Taylor-Green deck (validate_tgv.py:44-63; n1^3 hexes,
+16 by default, p=4, f32, dt scaled by 16/n1) to t = 14 (--t-end) on the
+captured path of the port's Solver (one step captured as a CUDA graph,
+27,999 replays at 16^3), or with --devices N of its ShardedSolver in N
+shards on the cards (round-robin; each card captures its segments of the
+step), samples TKE/vol every 0.05 with the port's
+io.history.integral_quantities, and holds the dissipation curve
+-d(TKE)/dt against the JAX package's own run at that resolution,
+validation/tgv_re1600.json (16^3) or tgv_re1600_32.json (32^3), with
+``compare``: including validate_tgv.py's PASS rule against the DNS peak
+recorded there, or, for a run to --t-end 4 or less, the laminar gates
+alone over the JAX samples it reaches.  Writes the JAX file's keys plus
 ``vs_jax`` (the comparison) and ``device`` (nvidia-smi's name and power
-limit); exits 1 when a gate fails.  Imports torch, numpy and
-hifiles_tpu_torch only.
+limit of every card) to --out (by default
+validation/tgv_re1600_torch.json, tgv_re1600_32_torch.json at 32^3);
+exits 1 when a gate fails.  Imports torch, numpy and hifiles_tpu_torch
+only.
 """
 
 import argparse
@@ -30,6 +38,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 JAX_CURVE = os.path.join(ROOT, "validation", "tgv_re1600.json")
 OUT = os.path.join(ROOT, "validation", "tgv_re1600_torch.json")
+# the JAX package's runs by resolution, and where the port's go
+JAX_CURVES = {16: JAX_CURVE,
+              32: os.path.join(ROOT, "validation", "tgv_re1600_32.json")}
+OUTS = {16: OUT, 32: os.path.join(ROOT, "validation",
+                                  "tgv_re1600_32_torch.json")}
 VOL = 8.0 * np.pi ** 3
 # the TKE sample spacing, as validate_tgv.py's (the DNS curve's resolution)
 SAMPLE = 0.05
@@ -72,8 +85,11 @@ def tgv_input(order=4, n1=16):
 
 def tke(solver):
     """Volume-averaged kinetic energy, TKE / (8 pi^3) (plotstats.py's
-    normalization), from the state read to the host in f64."""
+    normalization), from the state read to the host in f64 (a sharded
+    run's gathered into its single-device twin)."""
     from hifiles_tpu_torch.io.history import integral_quantities
+    if hasattr(solver, "sync_twin"):
+        solver = solver.sync_twin()
     return integral_quantities(solver, ["kineticenergy"])["kineticenergy"] \
         / VOL
 
@@ -102,7 +118,7 @@ def dissipation(ts, tkes):
     return 0.5 * (ts[1:] + ts[:-1]), -np.diff(tkes) / np.diff(ts)
 
 
-def compare(curve, reference):
+def compare(curve, reference, laminar_only=False):
     """The port's curve (a dict with the JAX file's ``tke0``, ``t`` and
     ``dissipation``) against the JAX package's (``reference``: that file's
     path, or its dict).  The curve is interpolated onto the JAX times
@@ -113,14 +129,18 @@ def compare(curve, reference):
     distance to DNS; the peak within 2% and its time within 0.25 of the
     JAX peak's; validate_tgv.py's PASS rule (:123-126) against the
     recorded DNS peak (time within 15%, value within 20%); every sample
-    finite.  Returns the readings, ``checks`` (gate -> passed) and
-    ``ok``."""
+    finite.  ``laminar_only``: a run to t <= 4, held over the JAX samples
+    up to its end by the finite, span, TKE(0) and laminar gates alone.
+    Returns the readings, ``checks`` (gate -> passed) and ``ok``."""
     if not isinstance(reference, dict):
         with open(reference) as f:
             reference = json.load(f)
     t, d = np.asarray(curve["t"]), np.asarray(curve["dissipation"])
     t_j = np.asarray(reference["t"])
     d_j = np.asarray(reference["dissipation"])
+    if laminar_only:
+        keep = t_j <= min(t[-1], LAMINAR_T) + 1e-9
+        t_j, d_j = t_j[keep], d_j[keep]
     diff = np.interp(t_j, t, d) - d_j
     lam = t_j <= LAMINAR_T
     ref_pk = reference["peak_dissipation"]
@@ -151,30 +171,49 @@ def compare(curve, reference):
         peak_time=out["peak_time_diff"] <= PEAK_T_TOL,
         dns_pass=(abs(peak_t - dns_pk_t) <= 0.15 * dns_pk_t
                   and abs(peak - dns_pk) <= 0.2 * dns_pk))
+    if laminar_only:
+        for gate in ("rms", "peak", "peak_time", "dns_pass"):
+            del checks[gate]
+    out["laminar_only"] = laminar_only
     out["ok"] = all(checks.values())
     return out
 
 
-def card_name():
-    """nvidia-smi's name and power limit of the first card."""
+def card_name(all_cards=False):
+    """nvidia-smi's name and power limit of the first card (of every
+    visible card, one per line, with ``all_cards``)."""
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
-    return res.stdout.strip().splitlines()[0].strip()
+    lines = [x.strip() for x in res.stdout.strip().splitlines()]
+    return "; ".join(lines) if all_cards else lines[0]
 
 
 def validate(order=4, n1=16, t_end=14.0, device="cuda", dtype=torch.float32,
-             log=None):
+             log=None, devices=None, laminar_only=False):
     """The TGV run on ``device`` and its comparison: returns the record
     (the JAX file's keys, ``vs_jax``, and the run's ``run_path``,
     ``captures``, ``replays``, ``steps``, ``volume_kernel_launches``,
-    ``dof_rk_stage_per_s``).  On the card the run must take one capture
-    and replay it for every other step ("SoA (fast) captured"), launching
-    the volume kernel 5 times a step; a miss raises."""
+    ``dof_rk_stage_per_s``).  ``devices``: the run in that many shards of
+    ShardedSolver, placed by select_devices.  On the card the run must
+    take one capture and replay it for every other step ("SoA (fast)
+    captured", "... (shards on N cards)"), launching the volume kernel 5
+    times a step on each card; a miss raises.  The JAX run of the same
+    resolution is the reference (JAX_CURVES; the 16^3 run at other
+    sizes); ``laminar_only``: a run to t <= 4 held by the laminar gates
+    alone (compare)."""
     from hifiles_tpu_torch import Solver, periodic_hex_mesh
+    from hifiles_tpu_torch.parallel import ShardedSolver, select_devices
     from hifiles_tpu_torch.solver.volume import reset_counters, volume_tdisf
     p = tgv_input(order, n1)
-    s = Solver(p, periodic_hex_mesh(n1, n1, n1), device=device, dtype=dtype)
+    mesh = periodic_hex_mesh(n1, n1, n1)
+    if devices:
+        s = ShardedSolver(p, mesh, select_devices(devices, device),
+                          dtype=dtype)
+        n_cards = len(set(s.devices))
+    else:
+        s = Solver(p, mesh, device=device, dtype=dtype)
+        n_cards = 1
     reset_counters()
     t0 = time.perf_counter()
     ts, tkes = tke_curve(s, t_end, SAMPLE, log)
@@ -182,8 +221,10 @@ def validate(order=4, n1=16, t_end=14.0, device="cuda", dtype=torch.float32,
     steps = int(round(SAMPLE / p.dt)) * (ts.size - 1)
     launches = volume_tdisf.launches
     if s.device.type == "cuda":
-        need = dict(run_path="SoA (fast) captured", captures=1,
-                    replays=steps - 1, launches=s.n_stages * steps)
+        path = "SoA (fast) captured" + (f" (shards on {n_cards} cards)"
+                                        if n_cards > 1 else "")
+        need = dict(run_path=path, captures=1, replays=steps - 1,
+                    launches=s.n_stages * steps * n_cards)
         got = dict(run_path=s.run_path, captures=s.captures,
                    replays=s.replays, launches=launches)
         if got != need:
@@ -197,9 +238,9 @@ def validate(order=4, n1=16, t_end=14.0, device="cuda", dtype=torch.float32,
         "peak_dissipation": float(diss[i_pk]), "peak_time": float(tm[i_pk]),
         "wall_seconds": wall, "t": tm.tolist(), "dissipation": diss.tolist(),
     }
-    with open(JAX_CURVE) as f:
+    with open(JAX_CURVES.get(n1, JAX_CURVE)) as f:
         ref = json.load(f)
-    rec["vs_jax"] = compare(rec, ref)
+    rec["vs_jax"] = compare(rec, ref, laminar_only=laminar_only)
     for key in ("dns_peak_dissipation", "dns_peak_time"):
         rec[key] = ref[key]
     # the DNS curve itself is not in the repository (validate_tgv.py:24-25)
@@ -213,13 +254,19 @@ def validate(order=4, n1=16, t_end=14.0, device="cuda", dtype=torch.float32,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--out", default=OUT)
+    ap.add_argument("--n1", type=int, default=16, choices=sorted(JAX_CURVES))
+    ap.add_argument("--devices", type=int, default=0)
+    ap.add_argument("--t-end", type=float, default=14.0)
+    ap.add_argument("--out")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("validate_torch_tgv: CUDA is not available")
-    card = card_name()
+    a.out = a.out or OUTS[a.n1]
+    card = card_name(all_cards=a.devices > 1)
     print(f"device: {card}", flush=True)
-    rec = validate(log=lambda i, t, k: print(f"t = {t:6.2f}  tke = {k:.6f}",
+    rec = validate(n1=a.n1, t_end=a.t_end, devices=a.devices,
+                   laminar_only=a.t_end <= LAMINAR_T,
+                   log=lambda i, t, k: print(f"t = {t:6.2f}  tke = {k:.6f}",
                                              flush=True))
     rec["device"] = card
     os.makedirs(os.path.dirname(os.path.abspath(a.out)), exist_ok=True)
