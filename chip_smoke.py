@@ -19,11 +19,14 @@ comparison asks for (``graph=False``):
                (bytes moved at 3.35 TB/s, operations at 67 TFLOP/s f32);
                the d = 2 and mixed-block variants timed again with the L2
                flushed before every launch (by a write and by a read of
-               256 MB); then the grouped launches the paths issue (GROUPS:
-               the blocks of `mixed` and `mixed3d` and the shards of the
-               sharded cells, one launch each), segment by segment against
-               the plain version, timed beside the same segments launched
-               one at a time;
+               256 MB); the shards of the dry run's legs (a few elements
+               each) and the 8,192 hexes a card of the 32^3 TGV on four
+               cards; then the grouped launches the paths issue (GROUPS:
+               the blocks of `mixed` and `mixed3d`, the shards of the
+               sharded cells, and each card's two shards of bench.py's
+               configurations and of the legs in 8 shards on 4 cards, one
+               launch each), segment by segment against the plain version,
+               timed beside the same segments launched one at a time;
   4. small   - the port on the card against the port on the CPU (f64, 2
                steps) for `plain` and each feature configuration (4^3 p=3),
                the wall-bounded ones (the channel's small twin, the
@@ -46,7 +49,11 @@ comparison asks for (``graph=False``):
                the 4^3 TGV in 4 shards, the walled quad channel in 7 of
                unequal size, the channel's small twin in 3, a SEM duct in
                4, the tri+quad box and the wall-modelled prism/tet channel
-               in 4;
+               in 4; then the legs: hifiles_tpu_torch.multichip's
+               dryrun_multichip(8, "cuda:0") in f64 (the JAX package's
+               eight dry-run legs, all 8 shards on the card, each captured
+               whole) and 2 replayed steps more, against the same legs on
+               the CPU (1e-11), the phase's wall seconds printed;
   5. reference - the isentropic vortex (16^2 quads, p=3, f64, 100 steps)
                against the reference binary's L2 error row, and the 8^3
                hex, tet, tri+quad and prism over-integration cases, the
@@ -131,8 +138,10 @@ comparison asks for (``graph=False``):
                segments of the step (gated, bit for bit the same shards on
                one card and the eager step, their rates), and the driver
                with --devices 4 on the cards (history held to the
-               single-device run's, restart continued); on one card one
-               line on stderr saying it was not run;
+               single-device run's, restart continued), and the dry run's
+               legs in 8 shards on the cards (bit for bit the same shards
+               on one card and the eager step); on one card one line on
+               stderr saying it was not run;
   9. checks  - no module of JAX, of the JAX package or the root bench.py
                was imported; the graph phase's summary, and the card's
                peak reserved memory and the wall seconds after each phase.
@@ -141,7 +150,11 @@ launches that carried that shape and its segments, summed over the paths
 that launch it, split in ``launches_by_path``, the long runs' paths
 `tgv_re1600`, `sod` and `channel_bf1` and the entry point's `bench` among
 them: the shards of the sharded cells are variants of their own; then each
-grouped launch, its launches and segments) and {"ok": true, "device": ...}.
+grouped launch, its launches and segments; a row's paths that run only on
+several cards, and did not run here, are named under "not_run") and
+{"ok": true, "device": ...}; before them, the rows whose every path runs
+only on several cards and did not run here, each with its times and
+bound.
 The script imports nothing of JAX, nothing of the JAX package and not the
 root bench.py.
 """
@@ -272,6 +285,19 @@ SHARDED_SLICES = {"plain x4": ("plain", 4), "channel x3": ("channel", 3),
 SHARDED_REPEATS = 4
 # the driver's sharded run, its single-device run (phase 7) the reference
 DRIVER_SHARDS = 4
+# the dry run's legs (hifiles_tpu_torch.multichip): their shards, and the
+# steps each takes after its own, replayed from its capture
+LEG_SHARDS = 8
+LEG_MORE_STEPS = 2
+# the paths of the kernel record that run only on several cards (the
+# multicard phase, scripts/multicard_torch.py): where one did not run, a
+# row names it under "not_run", and a row of such paths alone is printed
+# apart from the kernel record, with its times and bound
+MULTICARD_PATHS = {"legs on 4 cards", "tgv 32^3 on 4 cards"} | {
+    f"{name} x8 on 4 cards" for name in ("plain", "smag", "overint", "rans",
+                                         "shock", "channel", "mixed",
+                                         "mixed3d")}
+LEG_PATHS = ("legs", "legs on 4 cards")
 # the volume kernel's variants timed again with the L2 flushed (their
 # inputs, 9-45 MB, fit the H100's 50 MB of L2), and the flush's size
 L2_FLUSHED = ["ns_2d", "smagorinsky_2d", "rans_2d", "mixed_quad", "mixed_tri",
@@ -884,14 +910,16 @@ def blocks_of(s):
 def k1_per_stage(s):
     """(launches, segments) of the volume kernel per RK stage of solver
     ``s``: one grouped launch per card carrying every block of every
-    shard there, or two launches per block with over-integration; none
-    for equation 1 (plain torch)."""
+    shard there, or two with over-integration (the cubature points'
+    inviscid flux, then the solution points' viscous flux); none for
+    equation 1 (plain torch)."""
     blocks = len(s._blocks)
+    cards = len(set(getattr(s, "devices", [s.device])))
     if s.p.equation == 1:
         return 0, 0
     if s.p.over_int:
-        return 2 * blocks, 2 * blocks
-    return len(set(getattr(s, "devices", [s.device]))), blocks
+        return 2 * cards, 2 * blocks
+    return cards, blocks
 
 
 def reset_k1():
@@ -1082,6 +1110,28 @@ VARIANTS = [
          geos=("full",), path="mixed3d x4"),
     dict(name="mixed3d_tet_shard", F=5, prm=dict(sgs=0), U=10, E=6144,
          geos=("full",), path="mixed3d x4"),
+    # the 32^3 TGV in 4 shards on 4 cards (scripts/multicard_torch.py
+    # --parts scaling, scripts/validate_torch_tgv.py --devices 4): 8,192
+    # hexes a card
+    dict(name="ns_card_of_tgv32", F=5, prm={}, E=8192,
+         path="tgv 32^3 on 4 cards"),
+    # the shards of the dry run's legs (hifiles_tpu_torch.multichip, 8
+    # shards): a few elements each, far below a tile of 128, all on the
+    # card (`legs`) or two a card on four; the smag and channel legs share
+    # a shape and a variant (the channel's wall distance full)
+    dict(name="ns_leg_p3", F=5, prm={}, U=64, E=16, path=LEG_PATHS),
+    dict(name="ns_leg_p2", F=5, prm={}, U=27, E=4, path=LEG_PATHS),
+    dict(name="smagorinsky_leg", F=5, prm=dict(sgs=0), U=27, E=4,
+         geos=("broadcast", "mixed"), path=LEG_PATHS),
+    dict(name="rans_leg", F=6, prm={}, U=27, E=4, path=LEG_PATHS),
+    dict(name="ns_leg_p1", F=5, prm={}, U=8, E=4, path=LEG_PATHS),
+    dict(name="mixed_tri_leg", D=2, F=4, prm={}, U=6, E=4, geos=("full",),
+         path=LEG_PATHS),
+    dict(name="mixed_quad_leg", D=2, F=4, prm={}, U=9, E=2, path=LEG_PATHS),
+    dict(name="mixed3d_tet_leg", F=5, prm=dict(sgs=0), U=10, E=12,
+         geos=("full",), path=LEG_PATHS),
+    dict(name="mixed3d_prism_leg", F=5, prm=dict(sgs=0), U=18, E=4,
+         geos=("full",), path=LEG_PATHS),
 ]
 # The grouped launches of the main paths: every block of a stage (and
 # every shard on the card) in one launch (volume.volume_tdisf_many), as
@@ -1099,6 +1149,44 @@ GROUPS = [
                (125, 1365, "mixed")]),
     dict(name="mixed3d x4", F=5, prm=dict(sgs=0), path="mixed3d x4",
          segs=[(18, 2048, "full"), (10, 6144, "full")] * 4),
+    # two shards a card, 8 on 4 (scripts/multicard_torch.py --parts cells8
+    # legs): each card's launch of a stage; cells that share a variant and
+    # shapes share a row (`shock` launches `plain`'s; the `channel` the
+    # Smagorinsky variant of `smag`, its wall distance full)
+    dict(name="plain+shock x8, a card", F=5, prm={},
+         path=("plain x8 on 4 cards", "shock x8 on 4 cards"),
+         segs=[(125, 512, "broadcast")] * 2),
+    dict(name="smag+channel x8, a card", F=5, prm=dict(sgs=0),
+         path=("smag x8 on 4 cards", "channel x8 on 4 cards"),
+         segs=[(125, 512, "broadcast"), (125, 512, "mixed")]),
+    dict(name="overint x8 cubature, a card", F=5, prm=dict(viscous=False),
+         path="overint x8 on 4 cards", segs=[(343, 512, "broadcast")] * 2),
+    dict(name="overint x8 viscous, a card", F=5, prm=dict(inviscid=False),
+         path="overint x8 on 4 cards", segs=[(125, 512, "broadcast")] * 2),
+    dict(name="rans x8, a card", F=6, prm={}, path="rans x8 on 4 cards",
+         segs=[(125, 512, "broadcast")] * 2),
+    dict(name="mixed x8, a card", D=2, F=4, prm={},
+         path="mixed x8 on 4 cards",
+         segs=[(15, 1152, "full"), (25, 576, "broadcast")] * 2),
+    dict(name="mixed3d x8, a card", F=5, prm=dict(sgs=0),
+         path="mixed3d x8 on 4 cards",
+         segs=[(10, 3072, "full"), (18, 1024, "full")] * 2),
+    dict(name="legs p3, a card", F=5, prm={}, path="legs on 4 cards",
+         segs=[(64, 16, "broadcast")] * 2),
+    dict(name="legs shock, a card", F=5, prm={}, path="legs on 4 cards",
+         segs=[(27, 4, "broadcast")] * 2),
+    dict(name="legs smag+channel, a card", F=5, prm=dict(sgs=0),
+         path="legs on 4 cards",
+         segs=[(27, 4, "broadcast"), (27, 4, "mixed")]),
+    dict(name="legs rans, a card", F=6, prm={}, path="legs on 4 cards",
+         segs=[(27, 4, "broadcast")] * 2),
+    dict(name="legs p1, a card", F=5, prm={}, path="legs on 4 cards",
+         segs=[(8, 4, "broadcast")] * 2),
+    dict(name="legs mixed, a card", D=2, F=4, prm={}, path="legs on 4 cards",
+         segs=[(6, 4, "full"), (9, 2, "broadcast")] * 2),
+    dict(name="legs mixed3d, a card", F=5, prm=dict(sgs=0),
+         path="legs on 4 cards",
+         segs=[(10, 12, "full"), (18, 4, "full")] * 2),
 ]
 # a viscous case whose viscous, SGS and SA terms are not lost in the
 # inviscid flux's scale (SGS cutoff delta ~ 1, mu = 0.05)
@@ -2064,6 +2152,57 @@ def phase_sharded_small(counts):
         counts["sharded " + name] = run_counts
 
 
+def phase_legs(counts):
+    """The dry run of hifiles_tpu_torch.multichip on the card:
+    dryrun_multichip(LEG_SHARDS, "cuda:0") in f64, the JAX package's eight
+    legs at their dry-run shapes with every shard on the card (one
+    whole-step capture a leg), then LEG_MORE_STEPS replayed steps of each,
+    against the same legs on the CPU, state (and the channel's averages)
+    at 1e-11 * max(scale, 1); the volume kernel launched once a stage
+    carrying the leg's every shard, counted in ``counts`` under `legs`.
+    Prints the phase's wall seconds."""
+    import numpy as np
+    import torch
+    from hifiles_tpu_torch import multichip
+    t0 = time.perf_counter()
+    f64 = torch.float64
+    reset_k1()
+    card = multichip.dryrun_multichip(LEG_SHARDS, "cuda:0", f64)
+    for s in card.values():
+        s.run(LEG_MORE_STEPS, dt=s.p.dt)
+    torch.cuda.synchronize()
+    k1 = read_k1(counts, "legs")
+    t_card = time.perf_counter() - t0
+    cpu = multichip.dryrun_multichip(LEG_SHARDS, "cpu", f64)
+    for name, s in cpu.items():
+        s.run(LEG_MORE_STEPS, dt=s.p.dt)
+        g = card[name]
+        ug, uc = flat(g.gather_u()), flat(s.gather_u())
+        if g.u_avg_soa is not None:
+            ug = np.concatenate([ug, g.gather_u_avg().ravel()])
+            uc = np.concatenate([uc, s.gather_u_avg().ravel()])
+        err = np.abs(ug - uc).max() / max(np.abs(uc).max(), 1.0)
+        log(f"legs {name} f64: {g.mesh.n_cells} cells in {LEG_SHARDS} "
+            f"shards, shard 0's blocks {g._shard_shapes[0]} (U, E); run "
+            f"path {g.run_path!r}, capture {g.capture_seconds:.3f} s; card "
+            f"vs CPU {err:.3e} (of max(scale, 1), bound 1e-11)")
+        if not (g.run_path.endswith("captured") and g.captures == 1
+                and np.isfinite(ug).all() and err <= 1e-11):
+            raise AssertionError(f"legs {name}: the card's run disagrees "
+                                 f"with the CPU's ({err}) or ran "
+                                 f"{g.run_path!r}")
+    wall = time.perf_counter() - t0
+    need = sum((leg.steps + LEG_MORE_STEPS) for leg in multichip.LEGS.values())
+    log(f"legs: {len(card)} legs on the card in {t_card:.1f} s, with the CPU "
+        f"twins {wall:.1f} s; volume_tdisf launches {k1[0]}, segments "
+        f"{k1[1]} (one launch a stage and leg: >= {need} x 5); by group "
+        + ", ".join(f"{key} {list(shapes)}: {n}" for (key, shapes), n in
+                    counts["legs:groups"].items()))
+    if k1[0] < 5 * need or k1[1] < 5 * need * LEG_SHARDS:
+        raise AssertionError(f"legs: volume_tdisf (launches, segments) {k1}, "
+                             f"expected >= {(5 * need, 5 * need * LEG_SHARDS)}")
+
+
 def phase_sharded(card, counts, plain):
     """The sharded cells of SHARDED_SLICES at full width, f32, all shards
     on the one card, through the API: 10 + 10 steps each, gated row by
@@ -2230,15 +2369,18 @@ def phase_driver_sharded(card, counts, rows_one):
                              f"{DRIVER_SHARDS * need}")
 
 
-def phase_multicard():
+def phase_multicard(counts):
     """The multi-card paths of scripts/multicard_torch.py, when the machine
     shows more than one card: its cells (`plain` x4, `channel` x3,
     `mixed3d` x4, each card capturing its own shards' segments of the
     step, gated and held to the same shards on one card and to the eager
-    step bit for bit, with their rates) and its driver part (``--devices
+    step bit for bit, with their rates), its driver part (``--devices
     4`` on the cards, its history held to the single-device run's, its
-    restart continued); any miss raises.  On one card, one line on stderr
-    saying that the phase was not run."""
+    restart continued) and its legs part (the dry run's legs in 8 shards,
+    several a card, bit for bit the same shards on one card and the eager
+    step; their volume kernel launches in ``counts`` under `legs on 4
+    cards`); any miss raises.  On one card, one line on stderr saying that
+    the phase was not run."""
     import torch
     k = torch.cuda.device_count()
     if k < 2:
@@ -2255,6 +2397,11 @@ def phase_multicard():
             f"DOF*RK-stage/s, the same shards on one card "
             f"{rec['rates'][rec['cell'] + ' on one card']['captured']['median']:.6e}")
     multicard_torch.run_driver_part()
+    legs = {}
+    multicard_torch.run_legs(legs)
+    counts["legs on 4 cards"] = dict(legs["by_variant"])
+    counts["legs on 4 cards:blocks"] = dict(legs["by_shape"])
+    counts["legs on 4 cards:groups"] = dict(legs["by_group"])
 
 
 def phase_diagnostics(card):
@@ -2628,6 +2775,8 @@ def main():
     phase_small(counts)
     phase_sharded_small(counts)
     log_memory("the small phases")
+    phase_legs(counts)
+    log_memory("the legs")
     phase_reference(counts)
     log_memory("the reference phase")
     runs = {name: phase_slice(card, name, counts) for name in SLICES}
@@ -2648,7 +2797,7 @@ def main():
     phase_driver_sharded(card, counts, rows_one)
     phase_diagnostics(card)
     log_memory("the driver and diagnostics")
-    phase_multicard()
+    phase_multicard(counts)
     log_memory("the multi-card paths")
     phase_long(card, counts)
     log_memory("the long runs")
@@ -2664,12 +2813,18 @@ def main():
     if loaded:
         raise AssertionError(f"chip_smoke imported {sorted(loaded)[:5]}")
     import torch
-    kernels = []
+    kernels, not_run_rows = [], []
     for v in VARIANTS + GROUPS:
         paths = v["path"] if isinstance(v["path"], tuple) else (v["path"],)
         grouped = "segs" in v
         name = f"group {v['name']}" if grouped else v["name"]
-        by_path = {path: path_launches(counts, path, v) for path in paths}
+        # a path of several cards is not run on one card: a row of such
+        # paths alone goes to the line of rows not run here, with its
+        # times and bound
+        not_run = [p for p in paths if p in MULTICARD_PATHS
+                   and p + ":groups" not in counts]
+        by_path = {path: path_launches(counts, path, v) for path in paths
+                   if path not in not_run}
         for path, (k, _) in by_path.items():
             if k == 0:
                 raise AssertionError(f"volume_tdisf[{name}] ({v['key']}) "
@@ -2677,7 +2832,7 @@ def main():
         shape = (dict(segments=[dict(U=U, E=E, geometry=geo)
                                 for U, E, geo in v["segs"]]) if grouped
                  else dict(U=v.get("U", 125), E=v.get("E", 4096)))
-        kernels.append(dict(
+        (kernels if by_path else not_run_rows).append(dict(
             name=f"volume_tdisf[{name}]", dims=v.get("D", 3),
             route="cuda",
             source="hifiles_tpu_torch/csrc/volume_tdisf.cu",
@@ -2686,7 +2841,8 @@ def main():
             launches=sum(k for k, _ in by_path.values()),
             segments=sum(n for _, n in by_path.values()),
             launches_by_path={p: k for p, (k, _) in by_path.items()},
-            **recs[name]))
+            **(dict(not_run=not_run) if not_run else {}), **recs[name]))
+    log(json.dumps({"kernel rows of paths not run here": not_run_rows}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -30,7 +30,8 @@ class ShardedMixedSolver(ShardedLoop):
     single-device MixedSolver on ``devices[0]``, the twin the writers read
     and the driver takes its time step from (this solver, as the JAX one,
     has no compute_dt, hifiles_tpu/driver.py:171-174); ``gather_u`` gives
-    the per-type (E_t, U_t, F) tuple of its ``u``.  Turbulent inlets
+    the per-type (E_t, U_t, F) tuple of its ``u``; ``has_wm`` says
+    whether a shard has wall-model tables.  Turbulent inlets
     raise, as in the JAX package (mixed_sharding.py:458-462)."""
 
     def __init__(self, run_input, mesh, devices, dtype=torch.float64):
@@ -105,6 +106,7 @@ class ShardedMixedSolver(ShardedLoop):
 
         nfp_max = mt.bdy_slot.shape[1]
         subs, tables, bc_fns, wm_index = [], [], [], []
+        self.has_wm = False
         for s, dev in enumerate(devices):
             sub = {}
             for ct in present[s]:
@@ -118,6 +120,7 @@ class ShardedMixedSolver(ShardedLoop):
             wm = (build_mixed_wm_tables(mt_s, use_wm_of(run_input,
                                                         mt_s.bdy_bcid))
                   if wall_models_on(run_input, mt_s.bdy_bcid) else None)
+            self.has_wm |= wm is not None
             fns = (mixed_bc_functions(run_input, mt_s, base.rcfg, dev, dtype,
                                       wm) if bdys[s] else None)
             tables.append(ShardSoaTables(ints[s], bdys[s], halos[s],

@@ -15,18 +15,38 @@ their operands, so the step must read and write buffers that outlive the
 capture and are never rebound (solver.BlockLoop's step buffers), and it
 must make no host sync, which would break the capture; the capture runs
 under ``torch.cuda.set_sync_debug_mode("error")`` to name the op that
-does.  Random draws from a registered ``torch.Generator`` advance on
+does.  Nor may Python's cycle collector run inside it: PyTorch no
+longer collects garbage before a capture, and a dead cycle (an earlier
+solver and its graph) collected mid-capture frees CUDA objects there,
+from destructors that only warn of a CUDA error, and the capture then
+fails at its end; ``quiet_collector`` keeps the collector off until the
+capture ends.  Random draws from a registered ``torch.Generator`` advance on
 every replay.  Each graph keeps its intermediates in a memory pool of its
 own until ``release``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import gc
 
 import torch
 
 from ..backend import kernel_library
+
+
+@contextlib.contextmanager
+def quiet_collector():
+    """Keep Python's cycle collector off until the block ends (a
+    capture: see the module's docstring)."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
 
 
 class CudaStepGraph:
@@ -52,7 +72,8 @@ class CudaStepGraph:
         current.wait_stream(self.stream)
 
     def capture(self, body):
-        with torch.cuda.graph(self.graph, stream=self.stream):
+        with quiet_collector(), torch.cuda.graph(self.graph,
+                                                 stream=self.stream):
             mode = torch.cuda.get_sync_debug_mode()
             torch.cuda.set_sync_debug_mode("error")
             try:
@@ -143,19 +164,25 @@ class CudaCards:
 
     def enter(self, capture):
         """Make each card's capture stream its current stream (after the
-        work on the current ones), with host syncs refused while
-        ``capture``."""
+        work on the current ones), with host syncs refused and the cycle
+        collector off while ``capture``."""
         self._saved = [torch.cuda.current_stream(d) for d in self.devices]
         for dev, s, cur in zip(self.devices, self.streams, self._saved):
             s.wait_stream(cur)
             with torch.cuda.device(dev):
                 torch.cuda.set_stream(s)
         self._mode = torch.cuda.get_sync_debug_mode()
+        self._quiet = None
         if capture:
+            self._quiet = quiet_collector()
+            self._quiet.__enter__()
             torch.cuda.set_sync_debug_mode("error")
 
     def leave(self):
         torch.cuda.set_sync_debug_mode(self._mode)
+        if self._quiet is not None:
+            self._quiet.__exit__(None, None, None)
+            self._quiet = None
         for dev, s, cur in zip(self.devices, self.streams, self._saved):
             with torch.cuda.device(dev):
                 torch.cuda.set_stream(cur)

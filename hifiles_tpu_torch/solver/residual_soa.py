@@ -48,7 +48,7 @@ from .residual import BlockArrays, ResidualConfig
 from .volume import (SGS_NONE, SGS_SMAGORINSKY, SGS_WALE, VolumeCall,
                      VolumeParams, VolumeRequest, sgs_flux_p, sgs_kwargs,
                      softplus, sutherland_mu_p, visc_flux_p, visc_kwargs,
-                     volume_tdisf, volume_tdisf_many)
+                     volume_tdisf_many)
 
 # the Riemann solver codes of hifiles_tpu/ops/riemann.py (a JAX module)
 RUSANOV, ROEM, HLLC = 0, 2, 3
@@ -687,25 +687,30 @@ class BlockStages:
         return VolumeCall(u, gr, self.S.jg_u, self.delta_u, self.wdist_u,
                           extra)
 
-    def volume(self, u, gr):
-        """The volume transformed flux (d, U, F, E) where the grouped
-        launch does not take it (ref:src/eles.cpp:1415-1545): equation 1's
-        in plain torch, or the over-integration pair of hand-kernel
-        launches, a GEMM between them."""
-        ph, S, U = self.ph, self.S, self.U
-        d, nF, E = ph.d, ph.nF, self.E
-        if ph.scalar:
-            return self.volume_scalar(u, gr)
+    def over_call(self, u):
+        """Over-integration's first volume launch (ref:src/eles.cpp:
+        1415-1545): the state interpolated to the cubature points, the
+        inviscid flux there (ph.prm_over)."""
+        S, U, nF, E = self.S, self.U, self.ph.nF, self.E
         C2 = S.opp_over.shape[0]
         u_o = (S.opp_over @ u.reshape(U, nF * E)).view(C2, nF, E)
-        t_o = volume_tdisf(u_o, None, S.jg_o, ph.prm_over)  # (d, C2, F, E)
-        tdisf = (S.over_filter @ t_o.view(d, C2, nF * E)).view(d, U, nF, E)
-        if ph.cfg.viscous:
-            # the JAX branch leaves the similarity flux out of the volume
-            # term here (residual_soa.py:1114-1126)
-            tdisf = tdisf + volume_tdisf(u, gr, S.jg_u, ph.prm_visc,
-                                         self.delta_u, self.wdist_u)
-        return tdisf
+        return VolumeCall(u_o, None, S.jg_o, None, None, None)
+
+    def over_back(self, t_o):
+        """The cubature points' transformed flux (d, C2, F, E) projected
+        back to the solution points (d, U, F, E)."""
+        d, nF, E = self.ph.d, self.ph.nF, self.E
+        C2 = t_o.shape[1]
+        return (self.S.over_filter @ t_o.view(d, C2, nF * E)).view(
+            d, self.U, nF, E)
+
+    def visc_call(self, u, gr):
+        """Over-integration's second volume launch: the viscous flux at
+        the solution points (ph.prm_visc); the JAX branch leaves the
+        similarity flux out of the volume term here (residual_soa.py:
+        1114-1126)."""
+        return VolumeCall(u, gr, self.S.jg_u, self.delta_u, self.wdist_u,
+                          None)
 
     def volume_scalar(self, u, gr):
         """Equation 1's volume transformed flux (d, U, 1, E), plain torch:
@@ -774,8 +779,9 @@ def make_face_residual(stages, FA: FaceArrays, ph: Physics, bc_fns=None,
     On one shard of an element-sharded run (``FA.sharded``) the residual
     is ``residual.stages(us, fluc, ramp, out)``, a generator that stops at
     each halo exchange and at the volume stage.  At the volume stage
-    (unless over-integrated or scalar) it yields a volume.VolumeRequest
-    of its blocks and takes back their transformed fluxes, so that a
+    (unless scalar; twice when over-integrated) it yields a
+    volume.VolumeRequest of its blocks and takes back their transformed
+    fluxes, so that a
     caller can launch the requests of several shards on one card as one
     (volume.volume_tdisf_groups); ``residual(...)`` launches its own.  At
     an exchange it yields the send buffer (C, n_send), the values
@@ -921,10 +927,22 @@ def make_face_residual(stages, FA: FaceArrays, ph: Physics, bc_fns=None,
                                     (yield qn2.index_select(1, FA.send)))
 
         # 4. volume transformed flux: the hand kernel, one grouped launch
-        # for every block (and shard) of the card, or per block when
-        # over-integrated
-        if ph.scalar or cfg.over_int:
-            tdisfs = [k.volume(u, gr) for k, u, gr in zip(stages, us, grs)]
+        # for every block (and shard) of the card; over-integrated, two
+        # (the inviscid flux at the cubature points, a GEMM back, then
+        # the viscous flux at the solution points)
+        if ph.scalar:
+            tdisfs = [k.volume_scalar(u, gr)
+                      for k, u, gr in zip(stages, us, grs)]
+        elif cfg.over_int:
+            t_os = yield VolumeRequest([k.over_call(u)
+                                        for k, u in zip(stages, us)],
+                                       ph.prm_over)
+            tdisfs = [k.over_back(t_o) for k, t_o in zip(stages, t_os)]
+            if cfg.viscous:
+                t_vs = yield VolumeRequest(
+                    [k.visc_call(u, gr) for k, u, gr in zip(stages, us, grs)],
+                    ph.prm_visc)
+                tdisfs = [a + b for a, b in zip(tdisfs, t_vs)]
         else:
             tdisfs = yield VolumeRequest(
                 [k.volume_call(u, gr, extra)

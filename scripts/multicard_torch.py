@@ -2,7 +2,9 @@
 """Element-sharded runs of hifiles_tpu_torch with shards on several cards,
 each card capturing its own shards' part of the step (parallel/cards.py).
 
-  python3 scripts/multicard_torch.py [--parts cells driver scaling]
+  python3 scripts/multicard_torch.py [--parts cells driver scaling legs
+                                             cells8 driver8]
+                                     [--cells CONFIG ...]
                                      [--out profile_out/multicard.json]
 
 Parts (default: cells and driver):
@@ -34,13 +36,30 @@ Parts (default: cells and driver):
             chip_smoke.phase_driver holds the single-device restart);
   scaling - the 32^3 p=4 TGV (scripts/validate_torch_tgv.py's deck, f32):
             100 captured steps on one card against the same mesh in 4
-            shards on 4 cards, after 2 steps that capture each.
+            shards on 4 cards, after 2 steps that capture each;
+and with more shards than cards, two a card on four:
+  legs    - hifiles_tpu_torch.multichip.dryrun_multichip(8) on the cards
+            (the JAX package's eight dry-run legs at their shapes, f32,
+            each checked as the JAX leg asserts), then 2 steps more of
+            each leg (replays), the volume kernel launched once per card
+            and RK stage in them; each leg's state after its steps and
+            the 2 more equal, bit for bit, to the same 8 shards on card 0
+            and to the eager step on the cards; its segments, graph
+            launches, event records and waits per step;
+  cells8  - bench.py's eight configurations (CELLS8), each in 8 shards on
+            4 cards, as `cells` runs its cells: gated, bit for bit the
+            same 8 shards on one card and the eager step, the volume
+            kernel once per card and RK stage (and variant), the host's
+            issue time against the cards', and the rates beside the same
+            shards on one card and `plain` on one card;
+  driver8 - the `driver` part with --devices 8 (two shards a card).
 Raises with fewer than 2 visible cards.  Prints every card's nvidia-smi
 name and power limit, one line per reading, and writes the readings as
 JSON to --out.  Imports torch, numpy and hifiles_tpu_torch only.
 """
 
 import argparse
+import collections
 import json
 import os
 import re
@@ -62,6 +81,12 @@ from hifiles_tpu_torch.solver.volume import (reset_counters,  # noqa: E402
 # cell -> (bench configuration, shards = cards)
 CELLS = {"plain x4": ("plain", 4), "channel x3": ("channel", 3),
          "mixed3d x4": ("mixed3d", 4)}
+# cell -> (bench configuration, shards, cards): two shards a card
+CELLS8 = {f"{name} x8": (name, 8, 4) for name in (
+    "plain", "smag", "overint", "rans", "shock", "channel", "mixed",
+    "mixed3d")}
+LEG_SHARDS = 8
+LEG_MORE_STEPS = 2
 REPEATS = 4
 DRIVER_SHARDS = 4
 SLEEP_CYCLES = 400_000_000
@@ -181,15 +206,29 @@ def issue_time(s, dt, n=10):
     return 1e6 * (t1 - t0) / n, 1e3 * (t2 - t0) / n
 
 
+def cell_spec(cell):
+    """(bench configuration, shards, cards) of a cell of CELLS or CELLS8."""
+    if cell in CELLS:
+        name, n = CELLS[cell]
+        return name, n, n
+    return CELLS8[cell]
+
+
 def run_cell(cell, plain):
-    """One cell of CELLS on the cards beside its shards on one card; raises
-    on a miss.  ``plain``: `plain` on one card, (solver, deck), for the
-    rates.  Returns the cell's readings."""
-    name, n = CELLS[cell]
+    """One cell of CELLS or CELLS8 on the cards beside its shards on one
+    card; raises on a miss.  ``plain``: `plain` on one card, (solver,
+    deck), for the rates.  Returns the cell's readings."""
+    name, n_shards, n = cell_spec(cell)
     c = bench.case(name)
     t0 = time.perf_counter()
-    s = make_sharded(c.p, c.mesh, n, "cuda")
-    one = make_sharded(c.p, c.mesh, n, "cuda:0")
+    s = make_sharded(c.p, c.mesh, n_shards, "cuda")
+    one = make_sharded(c.p, c.mesh, n_shards, "cuda:0")
+    if name == "rans":
+        # nu~ at the free-stream level, as bench.make_solver seeds it
+        for x in (s, one):
+            u = x.gather_u()
+            u[..., -1] = c.p.mu_tilde_inf
+            x.scatter_u(u)
     setup = time.perf_counter() - t0
     cards = list(dict.fromkeys(s.devices))
     if len(cards) != n:
@@ -205,20 +244,23 @@ def run_cell(cell, plain):
     after = reserved()
     rec["capture_s"] = s.capture_seconds
     rec["graph_mib"] = [(b - a) / 2**20 for a, b in zip(before, after)][:n]
+    rec["shards"] = n_shards
     reset_counters()
     s.run(10, dt=c.p.dt)
     sync_all()
     k1 = dict(launches=volume_tdisf.launches,
               by_shape={f"{v} U={U} E={E}": k for (v, U, E), k in
                         volume_tdisf.by_shape.items()})
-    need = 10 * s.n_stages * n
+    # once per card, RK stage and variant (over-integration has two)
+    need = 10 * s.n_stages * n * len(volume_tdisf.by_variant)
     rec["k1"] = dict(k1, need=need)
     if not s.run_path.endswith(f"captured (shards on {n} cards)"):
         raise AssertionError(f"{cell}: run path {s.run_path!r}")
     if k1["launches"] != need:
         raise AssertionError(f"{cell}: volume kernel launched "
                              f"{k1['launches']} times in 10 steps, expected "
-                             f"{need} (once per card and RK stage)")
+                             f"{need} (once per card, RK stage and "
+                             "variant)")
     row = s.residual_norm(1)
     bench.gate(name, row)
     got = state(s)
@@ -272,14 +314,94 @@ def run_cell(cell, plain):
     return rec
 
 
-def run_cells():
-    """Every cell of CELLS; returns their readings."""
+def run_cells(cells=CELLS, only=None):
+    """Every cell of ``cells`` (CELLS or CELLS8), or those of them whose
+    configuration is in ``only``; returns their readings."""
     need_cards()
     c = bench.case("plain")
     plain = bench.make_solver("plain", c, torch.device("cuda", 0),
                               torch.float32)
     plain.run(10, dt=c.p.dt)
-    return [run_cell(cell, (plain, c.p)) for cell in CELLS]
+    out = []
+    for cell in cells:
+        if only and cell_spec(cell)[0] not in only:
+            continue
+        out.append(run_cell(cell, (plain, c.p)))
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_legs(counts=None):
+    """The `legs` part: the dry run's eight legs in LEG_SHARDS shards on
+    the cards, each then LEG_MORE_STEPS replayed steps, against the same
+    shards on card 0 and the eager step; raises on a miss.  Returns each
+    leg's readings; adds the volume kernel's counters of the replayed
+    steps (``by_variant``, ``by_shape``, ``by_group``) to ``counts``."""
+    from hifiles_tpu_torch import multichip
+    k = need_cards()
+    n = min(k, LEG_SHARDS)
+    t0 = time.perf_counter()
+    solvers = multichip.dryrun_multichip(LEG_SHARDS)
+    log(f"legs: dryrun_multichip({LEG_SHARDS}) on {n} cards in "
+        f"{time.perf_counter() - t0:.1f} s")
+    recs = []
+    for name, s in solvers.items():
+        leg = multichip.LEGS[name]
+        dt = leg.make_input().dt
+        if s._card_of != [q % n for q in range(LEG_SHARDS)] \
+                or s._n_cards() != n:
+            raise AssertionError(f"leg {name}: shards on cards "
+                                 f"{s._card_of}")
+        reset_counters()
+        s.run(LEG_MORE_STEPS, dt=dt)
+        sync_all()
+        launches = volume_tdisf.launches
+        by_group = {f"{v} {list(shapes)}": q for (v, shapes), q in
+                    volume_tdisf.by_group.items()}
+        if counts is not None:
+            for key in ("by_variant", "by_shape", "by_group"):
+                counts.setdefault(key, collections.Counter()).update(
+                    getattr(volume_tdisf, key))
+        need = LEG_MORE_STEPS * s.n_stages * n
+        multichip.check_leg(name, s)
+        got = state(s)
+        refs = {}
+        for what, device, graph in (("one card", "cuda:0", True),
+                                    ("eager", "cuda", False)):
+            r, p = multichip.build_leg(name, LEG_SHARDS, device)
+            r.run(leg.steps, dt=p.dt, graph=graph)
+            r.run(LEG_MORE_STEPS, dt=p.dt, graph=graph)
+            sync_all()
+            refs[what] = (state(r), r.run_path)
+            del r
+        sched = dict(s._graph.host_calls(), cuts=len(s._graph.cuts))
+        rec = dict(leg=name, cells=int(s.mesh.n_cells), dof=s.dof,
+                   run_path=s.run_path, steps=leg.steps + LEG_MORE_STEPS,
+                   shard_shapes=[[list(x) for x in sh]
+                                 for sh in s._shard_shapes],
+                   k1=dict(launches=launches, need=need, by_group=by_group),
+                   schedule=sched, capture_s=s.capture_seconds)
+        for what, (ref, path) in refs.items():
+            rec[f"vs_{what.replace(' ', '_')}"] = dict(
+                bit_for_bit=bool(np.array_equal(got, ref)),
+                max_abs_diff=float(np.abs(got - ref).max()), run_path=path)
+        log(f"leg {name}: {rec['cells']} cells, shards {rec['shard_shapes']}"
+            f" (U, E); run path {s.run_path!r}; {sched}; volume kernel "
+            f"{launches} launches in {LEG_MORE_STEPS} replayed steps (need "
+            f"{need}) {by_group}; bit for bit vs the same shards on one card "
+            f"{rec['vs_one_card']['bit_for_bit']} "
+            f"({refs['one card'][1]!r}), vs eager "
+            f"{rec['vs_eager']['bit_for_bit']} ({refs['eager'][1]!r}); "
+            f"capture {s.capture_seconds:.3f} s")
+        recs.append(rec)
+        if launches != need:
+            raise AssertionError(f"leg {name}: volume kernel launched "
+                                 f"{launches} times, expected {need}")
+        for what in refs:
+            if not rec[f"vs_{what.replace(' ', '_')}"]["bit_for_bit"]:
+                raise AssertionError(f"leg {name}: the state on {n} cards "
+                                     f"differs from the {what} run's")
+    return recs
 
 
 def driver_deck(mesh_file, **run):
@@ -308,13 +430,14 @@ def history_rows(path):
                        for line in lines[2:]]
 
 
-def run_driver_part():
-    """Path 2: the driver with --devices DRIVER_SHARDS on the cards; raises
-    on a miss.  Returns its readings."""
-    need_cards()
+def run_driver_part(shards=DRIVER_SHARDS):
+    """Path 2: the driver with --devices ``shards`` on the cards (shards a
+    multiple of the cards); raises on a miss.  Returns its readings."""
+    k = need_cards()
+    n = min(k, shards)
     from hifiles_tpu_torch import periodic_hex_mesh
     from hifiles_tpu_torch.mesh.gambit import write_gambit
-    base = os.path.join(ROOT, "build", "multicard_driver")
+    base = os.path.join(ROOT, "build", f"multicard_driver{shards}")
     shutil.rmtree(base, ignore_errors=True)
     dirs = {k: os.path.join(base, k) for k in ("one", "cards", "whole")}
     decks = {"run": driver_deck("tgv16.neu"),
@@ -331,16 +454,16 @@ def run_driver_part():
             with open(os.path.join(d, name + ".deck"), "w") as f:
                 f.write(text)
     deck = lambda name, d: os.path.join(dirs[d], name + ".deck")
-    dev = ["--devices", str(DRIVER_SHARDS)]
+    dev = ["--devices", str(shards)]
     run_driver(deck("run", "one"), dirs["one"])
     t0 = time.perf_counter()
     out = run_driver(deck("run", "cards"), dirs["cards"], *dev)
     wall = time.perf_counter() - t0
     path = re.search(r"^run path: (.*)$", out, re.M).group(1)
     placed = re.search(r"^shards: (.*)$", out, re.M).group(1)
-    want = ", ".join(f"cuda:{k} x1" for k in range(DRIVER_SHARDS))
-    if path != f"SoA (fast) captured (shards on {DRIVER_SHARDS} cards)" \
-            or placed != f"{DRIVER_SHARDS} on {want}":
+    want = ", ".join(f"cuda:{q} x{shards // n}" for q in range(n))
+    if path != f"SoA (fast) captured (shards on {n} cards)" \
+            or placed != f"{shards} on {want}":
         raise AssertionError(f"driver --devices: run path {path!r}, shards "
                              f"{placed!r}")
     row = np.array(re.search(r"^iter +20 .*res: (.*)$", out, re.M)
@@ -359,7 +482,7 @@ def run_driver_part():
         worst_int = max(worst_int, float(
             (np.abs(a[1 + n_res:-2] - b[1 + n_res:-2])
              / np.abs(b[1 + n_res:-2])).max()))
-    log(f"driver --devices {DRIVER_SHARDS}: run path {path!r}; iter-20 row "
+    log(f"driver --devices {shards}: run path {path!r}; iter-20 row "
         f"{row.tolist()} gated; history vs one card: residual norms "
         f"{worst_res:.3e} (gate 1e-3), integral quantities {worst_int:.3e} "
         f"(gate 1e-6); process {wall:.2f} s")
@@ -374,7 +497,7 @@ def run_driver_part():
     _, rows_whole = history_rows(os.path.join(dirs["whole"], "history.plt"))
     a, b = rows_restart[-1], rows_whole[-1]
     rel = float((np.abs(a[1:-1] - b[1:-1]) / np.abs(b[1:-1])).max())
-    log(f"driver --devices {DRIVER_SHARDS}: restart at 20 -> iter "
+    log(f"driver --devices {shards}: restart at 20 -> iter "
         f"{a[0]:.0f}, history row vs the uninterrupted run's: rel err "
         f"{rel:.3e} (gate 1e-5)")
     if not (a[0] == b[0] == 30 and rel < 1e-5):
@@ -429,17 +552,23 @@ def run_scaling(n1=32, steps=100):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parts", nargs="+", default=["cells", "driver"],
-                    choices=["cells", "driver", "scaling"])
+                    choices=["cells", "driver", "scaling", "legs", "cells8",
+                             "driver8"])
     ap.add_argument("--out", default=os.path.join(ROOT, "profile_out",
                                                   "multicard.json"))
+    ap.add_argument("--cells", nargs="+", metavar="CONFIG",
+                    help="run only these configurations of the cells "
+                         "and cells8 parts (a rerun within a chip budget)")
     a = ap.parse_args(argv)
     need_cards()
     names = card_names()
     for k, name in enumerate(names):
         log(f"card {k}: {name}")
     rec = dict(cards=names, torch=torch.__version__)
-    parts = dict(cells=run_cells, driver=run_driver_part,
-                 scaling=run_scaling)
+    parts = dict(cells=lambda: run_cells(CELLS, a.cells),
+                 driver=run_driver_part, scaling=run_scaling, legs=run_legs,
+                 cells8=lambda: run_cells(CELLS8, a.cells),
+                 driver8=lambda: run_driver_part(8))
     failed = []
     for part in a.parts:
         t0 = time.perf_counter()

@@ -366,6 +366,54 @@ def test_card_graph_is_the_default():
     assert t.run_path == "SoA featured (fast) eager" and t._graph is None
 
 
+@pytest.mark.parametrize("enabled", [True, False])
+def test_capture_keeps_the_cycle_collector_off(monkeypatch, enabled):
+    """A collection inside a capture frees dead solvers' graphs there,
+    which invalidates the capture on the card: CudaStepGraph.capture and
+    CudaCards.enter(capture=True) .. leave() keep the collector off for
+    the capture, also when the body raises, and leave it as it was."""
+    import gc
+    from hifiles_tpu_torch.solver import graph
+
+    class Stream:
+        def wait_stream(self, other):
+            pass
+    monkeypatch.setattr(torch.cuda, "graph",
+                        lambda *a, **k: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "get_sync_debug_mode", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "set_sync_debug_mode", lambda mode: None)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: Stream())
+    monkeypatch.setattr(torch.cuda, "set_stream", lambda s: None)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    was = gc.isenabled()
+    (gc.enable if enabled else gc.disable)()
+    try:
+        seen = []
+        g = graph.CudaStepGraph.__new__(graph.CudaStepGraph)
+        g.graph, g.stream = None, None
+        g.capture(lambda: seen.append(gc.isenabled()))
+
+        def boom():
+            seen.append(gc.isenabled())
+            raise RuntimeError("body")
+        with pytest.raises(RuntimeError, match="body"):
+            g.capture(boom)
+        assert seen == [False, False] and gc.isenabled() == enabled
+        c = graph.CudaCards.__new__(graph.CudaCards)
+        c.devices, c.streams = ["cuda:0", "cuda:1"], [Stream(), Stream()]
+        c.enter(capture=True)
+        assert not gc.isenabled()
+        c.leave()
+        assert gc.isenabled() == enabled
+        c.enter(capture=False)
+        assert gc.isenabled() == enabled
+        c.leave()
+        assert gc.isenabled() == enabled
+    finally:
+        (gc.enable if was else gc.disable)()
+
+
 # ----------------------------------------------------------------------
 # (c) parity with the JAX run chunk
 # ----------------------------------------------------------------------

@@ -247,6 +247,17 @@ try:
     raise AssertionError("bench.main took an option")
 except SystemExit:
     pass
+# the multi-device dry run: its eight legs in 2 shards on the CPU, and
+# its command line's refusal of anything but a shard count
+from hifiles_tpu_torch import multichip
+legs = multichip.dryrun_multichip(2, "cpu")
+assert list(legs) == list(multichip.LEGS) and all(
+    s.run_path.startswith("SoA") for s in legs.values())
+try:
+    multichip.main(["--devices"])
+    raise AssertionError("multichip.main took an option")
+except SystemExit:
+    pass
 blocked = ("jax", "jaxlib", "hifiles_tpu", "bench")
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in blocked)
 assert not loaded, loaded
@@ -267,9 +278,10 @@ def test_port_runs_with_jax_blocked():
     hifiles_tpu_torch`` on a tiny deck on the CPU, single-device and with
     ``--devices 2``; and the long runs' entry points at toy sizes
     (scripts/validate_torch_tgv.py's validate, chip_smoke.py's Sod tube
-    and type-1 forced channel) and the benchmark entry point
-    hifiles_tpu_torch.bench, with every import of JAX, of the JAX package
-    hifiles_tpu and of the root bench.py refused."""
+    and type-1 forced channel), the benchmark entry point
+    hifiles_tpu_torch.bench and the multi-device dry run
+    hifiles_tpu_torch.multichip, with every import of JAX, of the JAX
+    package hifiles_tpu and of the root bench.py refused."""
     env = dict(os.environ, OMP_NUM_THREADS="1")
     res = subprocess.run([sys.executable, "-c", _NO_JAX, ROOT],
                          capture_output=True, text=True, env=env,

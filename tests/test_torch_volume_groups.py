@@ -192,3 +192,25 @@ def test_residual_stage_issues_one_grouped_call(monkeypatch, make, blocks):
                                 for b in s._blocks)}
     assert {(U, E) for _, U, E in f.by_shape} == want
     assert len(f.by_variant) == 1
+
+
+def test_over_integration_issues_two_grouped_calls(monkeypatch):
+    """Over-integrated, a residual evaluation of 4 shards issues two
+    grouped volume calls, each carrying every shard's block: the inviscid
+    flux at the cubature points, then the viscous flux at the solution
+    points, two variants."""
+    from hifiles_tpu.mesh.generate import periodic_hex_mesh
+    from hifiles_tpu_torch.parallel import ShardedSolver
+    from test_face_path import tgv_input
+    p = tgv_input()
+    p.order, p.over_int, p.over_int_order = 2, 1, 4
+    s = ShardedSolver(run_input_from(p), mesh_from(periodic_hex_mesh(4, 2,
+                                                                     2)),
+                      devices=select_devices(4, "cpu"))
+    sizes = counting_plain(monkeypatch)
+    rhs = s._monitor_residual()
+    assert all(np.isfinite(a).all() for a in rhs)
+    f = V.volume_tdisf
+    assert sizes == [4, 4] and f.launches == 2 and f.segments == 8
+    assert sorted(f.by_variant) == ["D3F5+inviscid", "D3F5+viscous"]
+    assert {U for _, U, _ in f.by_shape} == {27, 125}
