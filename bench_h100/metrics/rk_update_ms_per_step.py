@@ -1,0 +1,11 @@
+"""rk_update_ms_per_step: device milliseconds per replayed step, in the
+traced chunk, of the operations that the step's part step.update
+captured (the RK stages' register and state updates, step.py);
+program_trace.replay_parts maps each replayed operation to its part by
+its place in the step's graph."""
+
+from bench_h100.program_trace import part_ms_per_step, program_record
+
+
+def read(rec):
+    return part_ms_per_step(rec, program_record(), "step.update")

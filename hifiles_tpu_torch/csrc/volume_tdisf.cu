@@ -417,4 +417,21 @@ int hft_peer_copy(void* dst, int dst_device, const void* src, size_t bytes,
   return static_cast<int>(rc);
 }
 
+// The node count of the graph that ``stream`` is capturing, for the
+// program's tracing (tracing.capture), not a kernel: -1 when the stream
+// captures nothing, or -(cudaError_t) - 1 on an error.
+long long hft_graph_nodes(void* stream) {
+  cudaStreamCaptureStatus status = cudaStreamCaptureStatusNone;
+  unsigned long long id = 0;
+  cudaGraph_t graph = nullptr;
+  cudaError_t rc = cudaStreamGetCaptureInfo(
+      static_cast<cudaStream_t>(stream), &status, &id, &graph);
+  if (rc != cudaSuccess) return -static_cast<long long>(rc) - 1;
+  if (status != cudaStreamCaptureStatusActive || graph == nullptr) return -1;
+  size_t n = 0;
+  rc = cudaGraphGetNodes(graph, nullptr, &n);
+  if (rc != cudaSuccess) return -static_cast<long long>(rc) - 1;
+  return static_cast<long long>(n);
+}
+
 }  // extern "C"

@@ -31,12 +31,12 @@ the reference reads both.
 
 from __future__ import annotations
 
-import collections
-import contextlib
 import json
 import os
 import sys
 import time
+
+from . import tracing
 
 USAGE = ("usage: python -m hifiles_tpu_torch <input_file> [--f64] "
          "[--outdir D] [--profile] [--device cuda|cpu] [--devices N]")
@@ -58,6 +58,23 @@ def load_mesh(run_input, deck_dir: str):
     raise ValueError(f"unknown mesh format: {path}")
 
 
+# the parts of the ``wall seconds`` line and the span each reads; the
+# driver's ``monitor`` span holds the twin's sync and the history writer's
+# own ``monitor`` span, which adds nothing to the aggregate inside it
+WALL_SPANS = {"mesh read": "mesh_read", "solver set-up": "solver_setup",
+              "restart read": "restart_read", "first chunk": "first_chunk",
+              "steps": "steps", "monitor": "monitor", "tecplot": "tecplot",
+              "cgns": "cgns", "vtu": "vtu", "restart write": "restart_write"}
+
+
+def wall_seconds() -> dict:
+    """The ``wall seconds`` line's parts that ran: their spans' aggregate
+    seconds, in the order the parts come in a run."""
+    totals = tracing.record()["totals"]
+    return {part: totals[name][1] * 1e-9 for part, name in WALL_SPANS.items()
+            if name in totals}
+
+
 def _option(argv, name, default):
     """The value after ``name`` in argv, or ``default``."""
     return argv[argv.index(name) + 1] if name in argv else default
@@ -69,7 +86,9 @@ def main(argv=None):
     and by (variant, U, E), and the wall seconds of each part of the run
     (mesh read, solver set-up, restart read, the first chunk of steps, the
     later steps, monitor, plots, restart write), the steps synchronised
-    with the card."""
+    with the card: the aggregates of the program's spans (tracing), which
+    the run starts empty.  With ``--profile`` the trace shows every span
+    as a range ``hf.<name>``."""
     import numpy as np
     import torch
 
@@ -92,17 +111,12 @@ def main(argv=None):
     # the `mpirun -np N bin/HiFiLES` analog (ref:src/HiFiLES.cpp:62-65)
     n_dev = int(_option(argv, "--devices", 0))
     os.makedirs(outdir, exist_ok=True)
-    wall = collections.Counter()
-
-    @contextlib.contextmanager
-    def timed(part):
-        t0 = time.perf_counter()
-        yield
-        wall[part] += time.perf_counter() - t0
+    tracing.reset()
+    span = tracing.span
 
     t_start = time.time()
     p = RunInput.from_deck(deck_path)
-    with timed("mesh read"):
+    with span("mesh_read"):
         mesh = load_mesh(p, os.path.dirname(os.path.abspath(deck_path)))
     print(f"mesh: {mesh.n_cells} cells, {mesh.n_verts} vertices, "
           f"boundaries {mesh.bc_names}")
@@ -111,7 +125,7 @@ def main(argv=None):
     # them (driver.py:75-84: prism tri and quad faces differ in size)
     cts_present = np.unique(mesh.ctype)
     mixed = cts_present.size > 1 or int(cts_present[0]) == PRISM
-    with timed("solver set-up"):
+    with span("solver_setup"):
         if n_dev:
             from .parallel import (ShardedMixedSolver, ShardedSolver,
                                    select_devices)
@@ -145,7 +159,7 @@ def main(argv=None):
         return solver.sync_twin() if n_dev else solver
 
     if p.restart_flag:
-        with timed("restart read"):
+        with span("restart_read"):
             if p.restart_ascii:
                 from .io.restart import read_restart_ascii
                 path = os.path.join(outdir, f"Rest_{p.restart_iter:09d}"
@@ -200,7 +214,7 @@ def main(argv=None):
             prof = torch.profiler.profile(activities=acts)
             prof.start()
         # the first chunk also pays the process's first launches
-        with timed("steps" if i > i0 else "first chunk"):
+        with span("steps" if i > i0 else "first_chunk"):
             # ShardedMixedSolver takes its dt from the twin, as the JAX
             # driver does (driver.py:171-174)
             solver.run(n, dt=(solver.compute_dt()
@@ -212,7 +226,7 @@ def main(argv=None):
             print(f"run path: {solver.run_path}")
         i += n
         if i % p.monitor_res_freq == 0 or i == i0 + p.n_steps:
-            with timed("monitor"):
+            with span("monitor"):
                 sync()
                 row = hist.write(i)
             res = row["residual"]
@@ -249,14 +263,14 @@ def main(argv=None):
         if p.plot_freq and i % p.plot_freq == 0:
             if p.write_type == 1:
                 from .io.tecplot import write_tec
-                with timed("tecplot"):
+                with span("tecplot"):
                     write_tec(sync(), outdir, i)
             elif p.write_type == 2:
                 from .io.cgns import write_cgns
-                with timed("cgns"):
+                with span("cgns"):
                     write_cgns(sync(), outdir, i)
             else:
-                with timed("vtu"):
+                with span("vtu"):
                     write_vtu(sync(), outdir, i)
         if prof is not None and i - profile_at >= n:
             if on_card:
@@ -266,7 +280,7 @@ def main(argv=None):
             prof = None
             print(f"profiler trace written to {outdir}/torch_trace")
         if p.restart_dump_freq and i % p.restart_dump_freq == 0:
-            with timed("restart write"):
+            with span("restart_write"):
                 if p.restart_ascii:
                     from .io.restart import write_restart_ascii
                     write_restart_ascii(outdir, sync(), step=i)
@@ -299,6 +313,6 @@ def main(argv=None):
     print("volume_tdisf launches by group: "
           + json.dumps([[key, shapes, n] for (key, shapes), n in
                         volume_tdisf.by_group.items()]))
-    print("wall seconds: " + json.dumps(dict(wall)))
+    print("wall seconds: " + json.dumps(wall_seconds()))
     print(f"total wall time {time.time() - t_start:.1f}s")
     return 0

@@ -3,11 +3,17 @@
 ref:src/eles.cpp:5485-5627 CalcIntegralQuantities).
 
 Copied from hifiles_tpu/io/history.py (lines 1-122) unchanged but for
-this paragraph and one repair: the port imports nothing of hifiles_tpu,
-the relative imports resolve to the port's io.vtu and io.forces, and
-``integral_quantities`` returns at once when no quantity is asked, where
-the JAX copy first reads a pressure from the state and so fails on every
-monitored advection-diffusion deck (one scalar field).
+this paragraph, the program's tracing spans and one repair: the port
+imports nothing of hifiles_tpu, the relative imports resolve to the
+port's io.vtu and io.forces, and ``integral_quantities`` returns at once
+when no quantity is asked, where the JAX copy first reads a pressure
+from the state and so fails on every monitored advection-diffusion deck
+(one scalar field).  A history row runs in the span ``monitor``, split
+into monitor.residual (the residual issued), monitor.to_host (the
+residual and the state waited for and copied to the host),
+monitor.norm (the float64 norms), monitor.integrals (the integral
+quantities in numpy), monitor.forces (with forces) and monitor.write
+(the line appended).
 """
 
 from __future__ import annotations
@@ -15,6 +21,8 @@ from __future__ import annotations
 import time as _time
 
 import numpy as np
+
+from .. import tracing
 
 
 def integral_quantities(solver, names: list[str]) -> dict[str, float]:
@@ -29,14 +37,22 @@ def integral_quantities(solver, names: list[str]) -> dict[str, float]:
         from ..io.vtu import _MixedBlockView
         out = {n: 0.0 for n in names}
         for idx, ct in enumerate(solver.cts):
-            sub = integral_quantities(_MixedBlockView(solver, ct, idx),
-                                      names)
+            with tracing.span("monitor.to_host"):
+                view = _MixedBlockView(solver, ct, idx)
+            sub = integral_quantities(view, names)
             for n in names:
                 out[n] += sub[n]
         return out
+    with tracing.span("monitor.to_host"):
+        u = solver.u
+    with tracing.span("monitor.integrals"):
+        return _integrals(solver, names, np.asarray(u, dtype=np.float64))
+
+
+def _integrals(solver, names, u):
+    """integral_quantities of one block's (E, U, F) float64 state ``u``."""
     p = solver.p
     nd = solver.n_dims
-    u = np.asarray(solver.u, dtype=np.float64)
     w = solver.ops.upts_weights[None, :] * solver.block.detjac_upts
 
     rho = u[..., 0]
@@ -103,6 +119,7 @@ class HistoryWriter:
             f.write('VARIABLES = ' + ', '.join(f'"{n}"' for n in names)
                     + '\nZONE T="history"\n')
 
+    @tracing.traced("monitor")
     def write(self, iteration: int) -> dict:
         s = self.solver
         res = s.residual_norm(s.p.res_norm_type)
@@ -115,17 +132,19 @@ class HistoryWriter:
         force_vals = []
         if self.with_force:
             from .forces import compute_forces
-            fr = compute_forces(s)
+            with tracing.span("monitor.forces"):
+                fr = compute_forces(s)
             # Fx/Fy(/Fz) columns are dimensional, C* columns the
             # q_inf*area_ref-normalized coefficients compute_forces already
             # built (re-dividing here would double-normalize)
             force_vals = list(fr["raw_force"]) + list(fr["coeff"])
             out["force"] = fr["raw_force"]
             out["coeff"] = fr["coeff"]
-        row = ([iteration] + [np.log10(max(r, 1e-300)) for r in res]
-               + force_vals + list(ints.values())
-               + [s.time, (_time.time() - self.t0) / 60.0])
-        with open(self.path, "a") as f:
-            f.write(" ".join(f"{v:.10e}" if isinstance(v, float) else str(v)
-                             for v in row) + "\n")
+        with tracing.span("monitor.write"):
+            row = ([iteration] + [np.log10(max(r, 1e-300)) for r in res]
+                   + force_vals + list(ints.values())
+                   + [s.time, (_time.time() - self.t0) / 60.0])
+            with open(self.path, "a") as f:
+                f.write(" ".join(f"{v:.10e}" if isinstance(v, float)
+                                 else str(v) for v in row) + "\n")
         return out

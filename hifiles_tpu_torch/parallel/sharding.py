@@ -20,7 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .. import PRISM
+from .. import PRISM, tracing
 from .. import native
 from ..solver.bc import make_bc_functions
 from ..solver.residual_soa import block_wm_index
@@ -401,6 +401,7 @@ class ShardedSolver(ShardedLoop):
     package pads them (clones of the shard's first element), and ``u``
     the state in that padded (n, El, U, F) layout, on the host."""
 
+    @tracing.traced("setup")
     def __init__(self, run_input, mesh, devices, dtype=torch.float64,
                  partition=None):
         missing = _unsupported(run_input, mesh)
@@ -409,61 +410,69 @@ class ShardedSolver(ShardedLoop):
                                       + ", ".join(missing))
         devices = [torch.device(d) for d in devices]
         n = len(devices)
-        base = Solver(run_input, mesh, device=devices[0], dtype=dtype)
+        with tracing.span("setup.twin"):
+            base = Solver(run_input, mesh, device=devices[0], dtype=dtype)
         block, ops, conn = base.block, base.ops, base.conn
         E, Pf = block.n_eles, ops.n_fpts
-        if isinstance(partition, str):
-            if partition != "graph":
-                raise ValueError(f"partition {partition!r}")
-            partition = graph_partition(conn, E, n)
-        shard_of = (np.asarray(partition) if partition is not None
-                    else _contiguous_partition(E, n))
-        sizes = np.bincount(shard_of, minlength=n)
-        if sizes.size != n or sizes.min() == 0:
-            raise ValueError(f"ShardedSolver: every one of {n} shards needs "
-                             f"an element; partition sizes {sizes}")
-        El = int(sizes.max())
-        # owner[s, i] = the element of shard s's i-th local slot; below El
-        # padded with clones of its first element (sharding.py:463-480)
-        order = np.argsort(shard_of, kind="stable")
-        loc_of = np.empty(E, dtype=np.int64)
-        owner = np.empty((n, El), dtype=np.int64)
-        pad_mask = np.zeros((n, El))
-        off = 0
-        for s in range(n):
-            mine = order[off:off + sizes[s]]
-            off += sizes[s]
-            loc_of[mine] = np.arange(sizes[s])
-            owner[s, :sizes[s]] = mine
-            owner[s, sizes[s]:] = mine[0]
-            pad_mask[s, :sizes[s]] = 1.0
-        self.owner, self.pad_mask, self.sizes = owner, pad_mask, sizes
-        self.n_eles, self.El = E, El
-        side, gslots = _shard_sides(shard_of, loc_of, Pf,
-                                    ops.n_fpts_per_face)
-        ints_s, bdys_s, halos_s = shard_faces(conn, n, side,
-                                              block.pos_fpts, gslots)
+        with tracing.span("setup.shards"):
+            if isinstance(partition, str):
+                if partition != "graph":
+                    raise ValueError(f"partition {partition!r}")
+                partition = graph_partition(conn, E, n)
+            shard_of = (np.asarray(partition) if partition is not None
+                        else _contiguous_partition(E, n))
+            sizes = np.bincount(shard_of, minlength=n)
+            if sizes.size != n or sizes.min() == 0:
+                raise ValueError(f"ShardedSolver: every one of {n} shards "
+                                 f"needs an element; partition sizes "
+                                 f"{sizes}")
+            El = int(sizes.max())
+            # owner[s, i] = the element of shard s's i-th local slot; below
+            # El padded with clones of its first element (sharding.py:
+            # 463-480)
+            order = np.argsort(shard_of, kind="stable")
+            loc_of = np.empty(E, dtype=np.int64)
+            owner = np.empty((n, El), dtype=np.int64)
+            pad_mask = np.zeros((n, El))
+            off = 0
+            for s in range(n):
+                mine = order[off:off + sizes[s]]
+                off += sizes[s]
+                loc_of[mine] = np.arange(sizes[s])
+                owner[s, :sizes[s]] = mine
+                owner[s, sizes[s]:] = mine[0]
+                pad_mask[s, :sizes[s]] = 1.0
+            self.owner, self.pad_mask, self.sizes = owner, pad_mask, sizes
+            self.n_eles, self.El = E, El
+        with tracing.span("setup.peers"):
+            side, gslots = _shard_sides(shard_of, loc_of, Pf,
+                                        ops.n_fpts_per_face)
+            ints_s, bdys_s, halos_s = shard_faces(conn, n, side,
+                                                  block.pos_fpts, gslots)
 
-        nfp = int(ops.n_fpts_per_face[0])
-        subs, tables, bc_fns, wm_index = [], [], [], []
-        for s, dev in enumerate(devices):
-            ids, bdys = owner[s, :sizes[s]], bdys_s[s]
-            sub = shard_block(block, ids, bdys)
-            subs.append([(0, ids, sub)])
-            tables.append(ShardSoaTables(ints_s[s], bdys, halos_s[s],
-                                         sizes[s] * Pf, sub.norm_fpts,
-                                         face=(Pf, nfp)))
-            fns = (make_bc_functions(run_input, sub, base.rcfg, dev, dtype)
-                   if bdys else None)
-            bc_fns.append(fns)
-            wm_index.append(block_wm_index(fns))
-        self._setup_shards(base, devices, subs, tables, bc_fns, wm_index)
-        self._owners = [owner]
-        self._h_ref = [torch.as_tensor(sub[0][2].h_ref, dtype=dtype,
-                                       device=dev)
-                       for sub, dev in zip(subs, devices)]
-        self._setup_sharded_inlet(block, bdys_s, nfp)
-        self.set_state(base.u, np.zeros_like(base.u), 0.0)
+        with tracing.span("setup.shards"):
+            nfp = int(ops.n_fpts_per_face[0])
+            subs, tables, bc_fns, wm_index = [], [], [], []
+            for s, dev in enumerate(devices):
+                ids, bdys = owner[s, :sizes[s]], bdys_s[s]
+                sub = shard_block(block, ids, bdys)
+                subs.append([(0, ids, sub)])
+                tables.append(ShardSoaTables(ints_s[s], bdys, halos_s[s],
+                                             sizes[s] * Pf, sub.norm_fpts,
+                                             face=(Pf, nfp)))
+                fns = (make_bc_functions(run_input, sub, base.rcfg, dev,
+                                         dtype) if bdys else None)
+                bc_fns.append(fns)
+                wm_index.append(block_wm_index(fns))
+            self._setup_shards(base, devices, subs, tables, bc_fns,
+                               wm_index)
+            self._owners = [owner]
+            self._h_ref = [torch.as_tensor(sub[0][2].h_ref, dtype=dtype,
+                                           device=dev)
+                           for sub, dev in zip(subs, devices)]
+            self._setup_sharded_inlet(block, bdys_s, nfp)
+        with tracing.span("setup.initial_state"):
+            self.set_state(base.u, np.zeros_like(base.u), 0.0)
 
     def _setup_sharded_inlet(self, block, bdys_s, nfp):
         """The turbulent inlet over the whole inlet plane on the
@@ -576,6 +585,7 @@ class ShardedSolver(ShardedLoop):
         ua = super().gather_u_avg()
         return None if ua is None else ua[0]
 
+    @tracing.traced("compute_dt")
     def compute_dt(self):
         """The time step (sharding.py:1221-1276 of the JAX package):
         dt_type 0 the deck's dt; else the CFL limit per element on each

@@ -27,11 +27,11 @@ and have no counterpart here.
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 import torch
 
+from .. import tracing
 from ..solver.elements import match_fpts_grouped
 from ..solver.graph import CudaCards
 from ..solver.residual_soa import (BlockStages, FaceArrays, Physics,
@@ -357,11 +357,12 @@ class ShardedLoop(BlockLoop):
         while msgs[0] is not None:
             if isinstance(msgs[0], VolumeRequest):
                 # every shard's volume stage, one launch per card
-                recv = volume_tdisf_groups(msgs)
-            elif cs is None:
-                recv = self._exchange(msgs)
+                with tracing.part("residual.volume"):
+                    recv = volume_tdisf_groups(msgs)
             else:
-                recv = self._card_exchange(msgs)
+                with tracing.part("residual.halo"):
+                    recv = (self._exchange(msgs) if cs is None
+                            else self._card_exchange(msgs))
             msgs = [_advance(g, r) for g, r in zip(gens, recv)]
         return out
 
@@ -450,34 +451,37 @@ class ShardedLoop(BlockLoop):
         if self._cstep is None:
             return super()._step_body()
         cs, dt = self._cstep, self._dt_s
-        if self._pre_step is not None:
-            self._pre_step(self.u_soa)
-        copies, rows, parts = [], None, None
-        if self.turb_inlet is not None:
-            rows = self._card_inlet_rows(copies)
-        if self._forcing:
-            parts = self._card_force_parts(copies)
-        if copies:
-            cs.cut(copies)
-        if self.turb_inlet is not None:
-            pos, sgn, _ = self._ti_state
-            (new_pos, new_sgn, _), fluc = self.turb_inlet.update(
-                self._ti_state, torch.cat(rows, dim=1), dt)
-            if new_pos is not pos:
-                pos.copy_(new_pos)
-                sgn.copy_(new_sgn)
-            self._fluc.copy_(fluc)
-            self._card_scatter_fluc()
-        if self._forcing:
-            self._card_body_force(parts)
+        with tracing.part("step.pre"):
+            if self._pre_step is not None:
+                self._pre_step(self.u_soa)
+            copies, rows, parts = [], None, None
+            if self.turb_inlet is not None:
+                rows = self._card_inlet_rows(copies)
+            if self._forcing:
+                parts = self._card_force_parts(copies)
+            if copies:
+                cs.cut(copies)
+            if self.turb_inlet is not None:
+                pos, sgn, _ = self._ti_state
+                (new_pos, new_sgn, _), fluc = self.turb_inlet.update(
+                    self._ti_state, torch.cat(rows, dim=1), dt)
+                if new_pos is not pos:
+                    pos.copy_(new_pos)
+                    sgn.copy_(new_sgn)
+                self._fluc.copy_(fluc)
+                self._card_scatter_fluc()
+            if self._forcing:
+                self._card_body_force(parts)
         self._step(self.u_soa, self.reg_soa, self._dt_rk)
         if self._featured:
-            reps = self._reps
-            for t_sim, k, dt_k in zip(reps["t_sim"], reps["k"], reps["dt"]):
-                t_sim += dt_k
-                k += 1.0
-            if self._avg:
-                self._card_average()
+            with tracing.part("step.post"):
+                reps = self._reps
+                for t_sim, k, dt_k in zip(reps["t_sim"], reps["k"],
+                                          reps["dt"]):
+                    t_sim += dt_k
+                    k += 1.0
+                if self._avg:
+                    self._card_average()
 
     def _card_force_parts(self, copies):
         """The forcing's plane integrals, each block's on its card in a
@@ -544,25 +548,26 @@ class ShardedLoop(BlockLoop):
             left = n_steps
             self._card_replicas()
             if self._graph is None and left > 0:
-                gen = getattr(draws, "gen", None)
-                g = CardStep(backend, self, len(self._cards),
-                             [] if gen is None else [gen])
-                self._stage_draws()
-                g.warm_up(self._step_body)
+                with tracing.span("run.warm_up"):
+                    gen = getattr(draws, "gen", None)
+                    g = CardStep(backend, self, len(self._cards),
+                                 [] if gen is None else [gen])
+                    self._stage_draws()
+                    g.warm_up(self._step_body)
                 left -= 1
-                t0 = time.perf_counter()
-                self._graph_launches = captured_launches(
-                    lambda: g.capture(self._step_body))
-                self.capture_seconds = time.perf_counter() - t0
+                with tracing.span("run.capture") as self._capture_span:
+                    self._graph_launches = captured_launches(
+                        lambda: g.capture(self._step_body))
                 self._graph, self._graph_key = g, key
                 self.captures += 1
                 # a stand-in's capture runs the program and returns the
                 # state; the copies follow it
                 self._card_replicas()
-            for _ in range(left):
-                self._stage_draws()
-                self._graph.replay(self._step_body)
-                count_replay(self._graph_launches)
+            with tracing.span("run.replays"):
+                for _ in range(left):
+                    self._stage_draws()
+                    self._graph.replay(self._step_body)
+                    count_replay(self._graph_launches)
             self.replays += left
         return chunk
 
@@ -621,6 +626,7 @@ class ShardedLoop(BlockLoop):
         return ShardState(torch.zeros((), dtype=self.dtype, device=dev)
                           for dev in self.devices)
 
+    @tracing.traced("sync_twin")
     def sync_twin(self):
         """The twin ``base`` holding this run's state, clock and featured
         carry (the JAX driver's sync, driver.py:109-131), for the writers

@@ -22,7 +22,10 @@ from destructors that only warn of a CUDA error, and the capture then
 fails at its end; ``quiet_collector`` keeps the collector off until the
 capture ends.  Random draws from a registered ``torch.Generator`` advance on
 every replay.  Each graph keeps its intermediates in a memory pool of its
-own until ``release``.
+own until ``release``.  ``count_nodes`` reads the node count of the graph
+being captured (the kernel library's hft_graph_nodes), which the
+program's tracing reads inside a capture so that each part of the step
+(tracing.part) knows its nodes.
 """
 
 from __future__ import annotations
@@ -55,7 +58,8 @@ class CudaStepGraph:
     the step eagerly on the capture stream (its first launches load the
     kernels' modules and cuBLAS's workspace for that stream);
     ``capture(body)`` records it; ``replay()`` launches it on the current
-    stream."""
+    stream; ``count_nodes()``, inside a capture, reads the graph's node
+    count so far."""
 
     def __init__(self, device, generators=()):
         self.device = torch.device(device)
@@ -63,6 +67,17 @@ class CudaStepGraph:
         self.graph = torch.cuda.CUDAGraph()
         for gen in generators:
             self.graph.register_generator_state(gen)
+
+    def count_nodes(self):
+        """The node count of the graph the capture stream records."""
+        fn = kernel_library().hft_graph_nodes
+        fn.argtypes = [ctypes.c_void_p]
+        fn.restype = ctypes.c_longlong
+        n = fn(self.stream.cuda_stream)
+        if n < 0:
+            raise RuntimeError(f"hft_graph_nodes: {n} (the stream is not "
+                               "capturing, or a CUDA error)")
+        return n
 
     def warm_up(self, body):
         current = torch.cuda.current_stream(self.device)

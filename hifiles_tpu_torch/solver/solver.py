@@ -35,12 +35,11 @@ from __future__ import annotations
 
 import os
 import sys
-import time
 
 import numpy as np
 import torch
 
-from .. import CTYPE_NAMES, HEX, PRISM, QUAD, TET, TRI
+from .. import CTYPE_NAMES, HEX, PRISM, QUAD, TET, TRI, tracing
 from ..config.params import ADIABAT_WALL, CYCLIC, ISOTHERM_WALL, RunInput
 from ..mesh.core import NUM_F_PER_C, MeshData, build_faces
 from ..ops.les_filter import build_les_filter
@@ -231,7 +230,8 @@ class BlockLoop:
                                       run_input.dy_cyclic,
                                       run_input.dz_cyclic])[:self.n_dims]
         self._bc_flags = bc_flags
-        self.conn = build_faces(mesh, bc_flags, self.delta_cyclic)
+        with tracing.span("setup.faces"):
+            self.conn = build_faces(mesh, bc_flags, self.delta_cyclic)
         self.rcfg = residual_config(run_input, self.n_fields)
 
     def _setup_inlet(self, block, plane_index, plane_shape, fpt_rows,
@@ -312,7 +312,7 @@ class BlockLoop:
         # (dt's kind, the inlet's draw object) and the dt buffers; the
         # captures and replays made so far
         self._graph = self._graph_key = None
-        self._graph_launches = self.capture_seconds = None
+        self._graph_launches = self._capture_span = None
         self.captures = self.replays = 0
         self.run_path, self._logged = None, set()
         self._dt_kind = "global"
@@ -327,8 +327,9 @@ class BlockLoop:
             if self._forcing:
                 # the body force, an (F, 1) column (ref:src/eles.cpp:
                 # 1095-1247 adds the source to every stage's rhs)
-                for i, v in enumerate(self._views(r)):
-                    v.add_(self._bf_on(i, v))
+                with tracing.part("residual.divergence"):
+                    for i, v in enumerate(self._views(r)):
+                        v.add_(self._bf_on(i, v))
             return r
         self._step = make_step_fn(stage_rhs, p.adv_type,
                                   post_stage=post_stage)
@@ -512,6 +513,14 @@ class BlockLoop:
             "the JAX MixedSolver steps every deck with one global dt "
             "(multiblock.py:843-874)")
 
+    @property
+    def capture_seconds(self):
+        """Host seconds of the last capture of the step (its
+        ``run.capture`` span), or None before the first."""
+        sp = self._capture_span
+        return None if sp is None else sp.seconds
+
+    @tracing.traced("run")
     def run(self, n_steps: int, dt=None, graph: bool = True):
         """Advance n_steps RK steps of size dt (default: compute_dt()) and
         return the state tensor.  ``dt`` is a float, a 0-d tensor, or (on
@@ -597,26 +606,30 @@ class BlockLoop:
     def _step_body(self):
         """One time step on the step's buffers, which it updates in place
         and never rebinds: what the CUDA graph holds (solver.py:380-482 of
-        the JAX package, the scan's body)."""
+        the JAX package, the scan's body), its operations in the parts
+        (tracing.part) step.pre, the residual's, step.update (step.py) and
+        step.post."""
         dt = self._dt_s
-        if self._pre_step is not None:
-            self._pre_step(self.u_soa)
-        if self.turb_inlet is not None:
-            pos, sgn, _ = self._ti_state
-            (new_pos, new_sgn, _), fluc = self.turb_inlet.update(
-                self._ti_state, self._fpt_rows(self.u_soa), dt)
-            if new_pos is not pos:
-                pos.copy_(new_pos)
-                sgn.copy_(new_sgn)
-            self._fluc.copy_(fluc)
-        if self._forcing:
-            self._bf.copy_(self._body_force(self.u_soa, dt))
+        with tracing.part("step.pre"):
+            if self._pre_step is not None:
+                self._pre_step(self.u_soa)
+            if self.turb_inlet is not None:
+                pos, sgn, _ = self._ti_state
+                (new_pos, new_sgn, _), fluc = self.turb_inlet.update(
+                    self._ti_state, self._fpt_rows(self.u_soa), dt)
+                if new_pos is not pos:
+                    pos.copy_(new_pos)
+                    sgn.copy_(new_sgn)
+                self._fluc.copy_(fluc)
+            if self._forcing:
+                self._bf.copy_(self._body_force(self.u_soa, dt))
         self._step(self.u_soa, self.reg_soa, self._dt_rk)
         if self._featured:
-            self._t_sim += dt
-            self._k += 1.0
-            if self._avg:
-                self._average(dt)
+            with tracing.part("step.post"):
+                self._t_sim += dt
+                self._k += 1.0
+                if self._avg:
+                    self._average(dt)
 
     def _make_run_chunk(self):
         """The counterpart of the JAX ``_make_run_chunk`` (solver.py:
@@ -633,7 +646,8 @@ class BlockLoop:
         or per element) or the inlet's draw object.  ``captures`` and
         ``replays`` count them.  A ReplayDraws inlet
         stages each step's draws before its replay.  The volume kernel's
-        counters count each replay's launches (volume.count_replay)."""
+        counters count each replay's launches (volume.count_replay).  The
+        spans run.warm_up, run.capture and run.replays time the three."""
         make = self._step_graph
         if make is None:
             if self.device.type != "cuda" or set(self._devs) != {self.device}:
@@ -647,23 +661,32 @@ class BlockLoop:
         def chunk(n_steps):
             left = n_steps
             if self._graph is None and left > 0:
-                gen = getattr(draws, "gen", None)
-                g = make(self.device, [] if gen is None else [gen])
-                self._stage_draws()
-                g.warm_up(self._step_body)
+                with tracing.span("run.warm_up"):
+                    gen = getattr(draws, "gen", None)
+                    g = make(self.device, [] if gen is None else [gen])
+                    self._stage_draws()
+                    g.warm_up(self._step_body)
                 left -= 1
-                t0 = time.perf_counter()
-                self._graph_launches = captured_launches(
-                    lambda: g.capture(self._step_body))
-                self.capture_seconds = time.perf_counter() - t0
+                with tracing.span("run.capture") as self._capture_span:
+                    self._graph_launches = captured_launches(
+                        lambda: g.capture(lambda: self._counted_step(g)))
                 self._graph, self._graph_key = g, key
                 self.captures += 1
-            for _ in range(left):
-                self._stage_draws()
-                self._graph.replay()
-                count_replay(self._graph_launches)
+            with tracing.span("run.replays"):
+                for _ in range(left):
+                    self._stage_draws()
+                    self._graph.replay()
+                    count_replay(self._graph_launches)
             self.replays += left
         return chunk
+
+    def _counted_step(self, g):
+        """The step as the graph ``g`` captures it: inside
+        tracing.capture, its parts' nodes counted by ``g.count_nodes``
+        where the graph has one (graph.CudaStepGraph; a test's stand-in
+        may)."""
+        with tracing.capture(getattr(g, "count_nodes", None)):
+            self._step_body()
 
     def release_graph(self):
         """Drop the captured step and the memory its graph holds; the next
@@ -761,6 +784,7 @@ class BlockLoop:
         first, a, b = coef()
         avg.copy_(torch.where(first, cur, a * avg + b * cur))
 
+    @tracing.traced("massflux")
     def inflow_massflux(self):
         """(mass_flux, ubulk, next body force) through the -x cyclic
         inflow plane, summed over the blocks on the host (solver.py:
@@ -828,8 +852,12 @@ class BlockLoop:
 
     def _monitor_residual(self):
         """Residual of the current state, a tuple of (E, U, F) numpy
-        arrays, one per block."""
-        return self._to_numpy(self._rhs(self.u_soa, None))
+        arrays, one per block: issued (span monitor.residual), then waited
+        for and copied to the host (monitor.to_host)."""
+        with tracing.span("monitor.residual"):
+            r = self._rhs(self.u_soa, None)
+        with tracing.span("monitor.to_host"):
+            return self._to_numpy(r)
 
     def _check_cfl_dt(self):
         """The CFL time step reads |v| + c, which equation 1's one scalar
@@ -851,13 +879,15 @@ class BlockLoop:
         accumulators."""
         if r is None:
             r = self._monitor_residual()
-        rs = [np.asarray(x, dtype=np.float64) for x in _per_block(r)]
-        n_pts = sum(x.shape[0] * x.shape[1] for x in rs)
-        if norm_type == 1:
-            return sum(np.abs(x).sum(axis=(0, 1)) for x in rs) / n_pts
-        if norm_type == 2:
-            return np.sqrt(sum((x * x).sum(axis=(0, 1)) for x in rs)) / n_pts
-        return np.max([np.abs(x).max(axis=(0, 1)) for x in rs], axis=0)
+        with tracing.span("monitor.norm"):
+            rs = [np.asarray(x, dtype=np.float64) for x in _per_block(r)]
+            n_pts = sum(x.shape[0] * x.shape[1] for x in rs)
+            if norm_type == 1:
+                return sum(np.abs(x).sum(axis=(0, 1)) for x in rs) / n_pts
+            if norm_type == 2:
+                return np.sqrt(sum((x * x).sum(axis=(0, 1))
+                                   for x in rs)) / n_pts
+            return np.max([np.abs(x).max(axis=(0, 1)) for x in rs], axis=0)
 
 
 class Solver(BlockLoop):
@@ -867,50 +897,62 @@ class Solver(BlockLoop):
     turn the JAX package's into these).  Prisms and mixed meshes run
     through MixedSolver."""
 
+    @tracing.traced("setup")
     def __init__(self, run_input: RunInput, mesh: MeshData, device="cuda",
                  dtype=torch.float64):
         self._setup(run_input, mesh, device, dtype, _unsupported)
-        self.ops = build_ops(run_input, int(mesh.ctype[0]))
-        self.block = build_element_block(
-            mesh, self.conn, self.ops, delta_cyclic=self.delta_cyclic,
-            over_int_order=(run_input.over_int_order if run_input.over_int
-                            else None))
+        with tracing.span("setup.geometry"):
+            self.ops = build_ops(run_input, int(mesh.ctype[0]))
+            self.block = build_element_block(
+                mesh, self.conn, self.ops, delta_cyclic=self.delta_cyclic,
+                over_int_order=(run_input.over_int_order
+                                if run_input.over_int else None))
         if needs_wall_distance(run_input):
-            b = self.block
-            b.compute_wall_distance(wall_points(
-                b.bdy_slot, b.bdy_mask, b.bdy_bcid, b.pos_fpts,
-                self._bc_flags, self.n_dims))
+            with tracing.span("setup.wall_distance"):
+                b = self.block
+                b.compute_wall_distance(wall_points(
+                    b.bdy_slot, b.bdy_mask, b.bdy_bcid, b.pos_fpts,
+                    self._bc_flags, self.n_dims))
 
         self._bc_fns = None
         if self.block.bdy_slot.size:
-            self._bc_fns = make_bc_functions(run_input, self.block,
-                                             self.rcfg, self.device, dtype)
-        self.residual_soa = make_residual_soa(self.block, self.rcfg,
-                                              self.device, dtype,
-                                              self._bc_fns)
-        # the boundary planes are (nfp, Fb): face f's point j at j*Fb + f
-        Fb, nfp = self.block.bdy_slot.shape
-        self._setup_inlet(self.block, np.arange(nfp)[None, :] * Fb
-                          + np.arange(Fb)[:, None], (nfp, Fb),
-                          self.residual_soa.flux_point_rows)
-        self._setup_loop([self.block], [np.arange(mesh.n_cells)],
-                         lambda u, ramp, fluc=None: self.residual_soa(
-                             u, fluc, ramp))
-        self.sensor_fn = self._sensor_of(0) if run_input.shock_cap else None
-        self._h_ref = torch.as_tensor(self.block.h_ref, dtype=dtype,
-                                      device=self.device)
+            with tracing.span("setup.boundary"):
+                self._bc_fns = make_bc_functions(run_input, self.block,
+                                                 self.rcfg, self.device,
+                                                 dtype)
+        with tracing.span("setup.residual"):
+            self.residual_soa = make_residual_soa(self.block, self.rcfg,
+                                                  self.device, dtype,
+                                                  self._bc_fns)
+        with tracing.span("setup.loop"):
+            # the boundary planes are (nfp, Fb): face f's point j at
+            # j*Fb + f
+            Fb, nfp = self.block.bdy_slot.shape
+            self._setup_inlet(self.block, np.arange(nfp)[None, :] * Fb
+                              + np.arange(Fb)[:, None], (nfp, Fb),
+                              self.residual_soa.flux_point_rows)
+            self._setup_loop([self.block], [np.arange(mesh.n_cells)],
+                             lambda u, ramp, fluc=None: self.residual_soa(
+                                 u, fluc, ramp))
+            self.sensor_fn = (self._sensor_of(0) if run_input.shock_cap
+                              else None)
+            self._h_ref = torch.as_tensor(self.block.h_ref, dtype=dtype,
+                                          device=self.device)
 
         # initial condition at solution points (ref:src/solver.cpp:321-340)
-        u0 = initial_condition(run_input, self.block.pos_upts, self.n_fields)
-        if run_input.patch:
-            u0 = apply_patch(run_input, self.block.pos_upts, u0)
-        self.set_state(u0, np.zeros_like(u0), 0.0)
+        with tracing.span("setup.initial_state"):
+            u0 = initial_condition(run_input, self.block.pos_upts,
+                                   self.n_fields)
+            if run_input.patch:
+                u0 = apply_patch(run_input, self.block.pos_upts, u0)
+            self.set_state(u0, np.zeros_like(u0), 0.0)
 
     @staticmethod
     def _state_out(arrays):
         """The one block's array."""
         return arrays[0]
 
+    @tracing.traced("compute_dt")
     def compute_dt(self):
         """The time step (solver.py:570-613 of the JAX package;
         ref:src/solver.cpp:484-549, ref:src/eles.cpp:1267-1356): dt_type

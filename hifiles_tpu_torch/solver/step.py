@@ -3,13 +3,16 @@ ref:data/RK_coeff.dat).
 
 Port of hifiles_tpu/solver/step.py.  adv_type codes: 0 forward Euler,
 1 SSP-RK24(2N*), 2 SSP-RK34(2N), 3 RK45(2N) Carpenter-Kennedy,
-4 SSP-RK414(2N) Niegemann.  Each stage calls the spatial residual once.
+4 SSP-RK414(2N) Niegemann.  Each stage calls the spatial residual once;
+the updates around it run in the tracing part step.update.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .. import tracing
 
 # Carpenter-Kennedy RK45(2N) (ref:data/RK_coeff.dat adv_type==3)
 RK45_A = np.array([
@@ -72,30 +75,45 @@ def make_step_fn(residual_fn, adv_type: int, post_stage=None):
     which always comes with its register)."""
     ps = post_stage if post_stage is not None else (lambda u: u)
 
+    def update():
+        return tracing.part("step.update")
+
     if adv_type == 0:
         def step(u, reg, dt):
-            ps(_axpy(u, residual_fn(u), dt))
+            k = residual_fn(u)
+            with update():
+                ps(_axpy(u, k, dt))
             return u, reg
         return step
 
     if adv_type == 1:  # SSP-RK24 (ref:src/eles.cpp:1117-1170)
         def step(u, reg, dt):
-            u0 = u.clone()
+            with update():
+                u0 = u.clone()
             for _ in range(3):
-                ps(_axpy(u, residual_fn(u), dt / 3.0))
+                k = residual_fn(u)
+                with update():
+                    ps(_axpy(u, k, dt / 3.0))
             k = residual_fn(u)
-            ps(_axpy(u.mul_(0.75).add_(u0, alpha=0.25), k, dt / 4.0))
+            with update():
+                ps(_axpy(u.mul_(0.75).add_(u0, alpha=0.25), k, dt / 4.0))
             return u, reg
         return step
 
     if adv_type == 2:  # SSP-RK34 (ref:src/eles.cpp:1172-1220)
         def step(u, reg, dt):
-            u0 = u.clone()
-            ps(_axpy(u, residual_fn(u), dt / 2.0))
-            ps(_axpy(u, residual_fn(u), dt / 2.0))
+            with update():
+                u0 = u.clone()
+            for _ in range(2):
+                k = residual_fn(u)
+                with update():
+                    ps(_axpy(u, k, dt / 2.0))
             k = residual_fn(u)
-            ps(_axpy(u.div_(3.0).add_(u0, alpha=2.0 / 3.0), k, dt / 6.0))
-            ps(_axpy(u, residual_fn(u), dt / 2.0))
+            with update():
+                ps(_axpy(u.div_(3.0).add_(u0, alpha=2.0 / 3.0), k, dt / 6.0))
+            k = residual_fn(u)
+            with update():
+                ps(_axpy(u, k, dt / 2.0))
             return u, reg
         return step
 
@@ -106,11 +124,13 @@ def make_step_fn(residual_fn, adv_type: int, post_stage=None):
         def step(u, reg, dt):
             # A[0] == 0 clears the register at the first stage, as the JAX
             # step's reg * 0.0 does
-            r = u.new_zeros(u.shape) if reg is None else reg
+            with update():
+                r = u.new_zeros(u.shape) if reg is None else reg
             for a, b in zip(A, Bc):
                 k = residual_fn(u)
-                _axpy(r.mul_(a), k, dt)
-                ps(u.add_(r, alpha=b))
+                with update():
+                    _axpy(r.mul_(a), k, dt)
+                    ps(u.add_(r, alpha=b))
             return u, r
         return step
 
