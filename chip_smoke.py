@@ -27,6 +27,11 @@ comparison asks for (``graph=False``):
                configurations and of the legs in 8 shards on 4 cards, one
                launch each), segment by segment against the plain version,
                timed beside the same segments launched one at a time;
+               then K3's two entries (K3_ROWS: the 32^3 TGV's block and
+               the blocks of bench.py's `plain`, `smag`, `rans`,
+               `channel` with boundary faces, `mixed` and `mixed3d`)
+               against their plain versions (f32 and f64), timed beside
+               them and their byte bound;
   4. small   - the port on the card against the port on the CPU (f64, 2
                steps) for `plain` and each feature configuration (4^3 p=3),
                the wall-bounded ones (the channel's small twin, the
@@ -1333,6 +1338,163 @@ def phase_groups():
     return recs
 
 
+# K3 (solver/ldg_element.py): each entry at the shapes of the paths that
+# launch it, one block each (d, solution points U, flux points Pf, elements
+# E, F, the SGS model, the geometry as in GEOMETRY_K3, the gradient output
+# at the flux points where the block has boundary faces)
+K3_ROWS = [
+    dict(name="tgv_re1600_160", D=3, U=125, Pf=150, E=32768, F=5, sgs=-1,
+         geo="broadcast", bdy=False),
+    dict(name="plain", D=3, U=125, Pf=150, E=4096, F=5, sgs=-1,
+         geo="broadcast", bdy=False),
+    dict(name="smag", D=3, U=125, Pf=150, E=4096, F=5, sgs=0,
+         geo="broadcast", bdy=False),
+    dict(name="rans", D=3, U=125, Pf=150, E=4096, F=6, sgs=-1,
+         geo="broadcast", bdy=False),
+    dict(name="channel", D=3, U=125, Pf=150, E=4096, F=5, sgs=0,
+         geo="mixed", bdy=True),
+    dict(name="mixed_quad", D=2, U=25, Pf=20, E=4608, F=4, sgs=-1,
+         geo="broadcast", bdy=False),
+    dict(name="mixed_tri", D=2, U=15, Pf=15, E=9216, F=4, sgs=-1,
+         geo="full", bdy=False),
+    dict(name="mixed3d_prism", D=3, U=18, Pf=39, E=8192, F=5, sgs=0,
+         geo="full", bdy=True),
+    dict(name="mixed3d_tet", D=3, U=10, Pf=24, E=24576, F=5, sgs=0,
+         geo="full", bdy=True),
+]
+# the flux-point geometry kept at one column: a uniform mesh's, the
+# channel's (wall distance and normals per element), a curved or
+# unstructured block's (none)
+GEOMETRY_K3 = {"broadcast": ("jg", "inv_det", "norm", "delta", "wdist"),
+               "mixed": ("jg", "inv_det", "delta"), "full": ()}
+
+
+def k3_inputs(r, dtype, device, seed=0):
+    """Seeded operands of K3 row ``r``: at the flux points (tgf, u_f, jg,
+    inv_det, norm, delta, wdist; the geometry cut to one column as
+    GEOMETRY_K3 says) and at the solution points (tg, jg, inv_det)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    D, U, Pf, E, F = r["D"], r["U"], r["Pf"], r["E"], r["F"]
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    u = rng.random((F, E, Pf)) + 1.0
+    u[D + 1] += 10.0
+    if F == D + 3:
+        u[D + 2] = KERNEL_PRM["mu"] * rng.uniform(-2.0, 20.0, (E, Pf))
+    f = dict(tgf=t(rng.normal(size=(D, F, E, Pf)) * 0.5), u_f=t(u),
+             jg=t(rng.random((D, D, E, Pf))),
+             inv_det=t(0.5 + rng.random((E, Pf))),
+             norm=t(rng.normal(size=(D, E, Pf))),
+             delta=t(0.5 + rng.random((E, Pf))),
+             wdist=t(0.5 * rng.random((E, Pf))))
+    for k in GEOMETRY_K3[r["geo"]]:
+        f[k] = f[k][..., :1, :].contiguous()
+    col = (lambda a: a[..., :1]) if r["geo"] != "full" else (lambda a: a)
+    up = (t(rng.normal(size=(D, U, F, E))),
+          t(np.ascontiguousarray(col(rng.random((D, D, U, E))))),
+          t(np.ascontiguousarray(col(0.5 + rng.random((U, E))))))
+    return f, up
+
+
+def phase_k3():
+    """Each K3 row against its plain version on the card (f32 and f64, at
+    KERNEL_TOL), both entries; in f32 each entry's time, the plain
+    version's and its bound (the bytes it must move at 3.35 TB/s: each
+    input read once, a column read once, each output written once).
+    Returns {"k3 <entry>[<row>]": record}."""
+    import dataclasses
+    import torch
+    from hifiles_tpu_torch.solver.ldg_element import (
+        flux_point_qn, flux_point_qn_ref, solution_point_gradient,
+        solution_point_gradient_ref)
+    from hifiles_tpu_torch.solver.volume import VolumeParams, variant
+    dev = torch.device("cuda", 0)
+    recs = {}
+    for r in K3_ROWS:
+        prm = dataclasses.replace(VolumeParams(**KERNEL_PRM), inviscid=False,
+                                  sgs=r["sgs"])
+        key = variant(prm, r["F"], False, r["D"])
+        for dtype in (torch.float32, torch.float64):
+            f, up = k3_inputs(r, dtype, dev)
+            sgs = r["sgs"] >= 0
+            fargs = ([f[k] for k in ("tgf", "u_f", "jg", "inv_det",
+                                     "norm")]
+                     + [prm, f["delta"] if sgs else None,
+                        f["wdist"] if sgs else None, None, r["bdy"]])
+            cases = {
+                "flux_point_qn": (lambda: flux_point_qn(*fargs),
+                                  lambda: flux_point_qn_ref(*fargs)),
+                "solution_point_gradient": (
+                    lambda: solution_point_gradient(*up),
+                    lambda: solution_point_gradient_ref(*up))}
+            for entry, (kernel, plain) in cases.items():
+                got, want = kernel(), plain()
+                torch.cuda.synchronize()
+                pairs = [(a, b) for a, b in zip(pairs_of(got),
+                                                pairs_of(want))
+                         if b is not None]
+                err = max((a - b).abs().max().item() for a, b in pairs)
+                scale = max(b.abs().max().item() for _, b in pairs)
+                bound = KERNEL_TOL[str(dtype)[6:]] * max(scale, 1.0)
+                name = f"k3 {entry}[{r['name']}]"
+                shape = (f"D={r['D']} Pf={r['Pf']} E={r['E']} F={r['F']} "
+                         f"geo={r['geo']} grad out={r['bdy']}"
+                         if entry == "flux_point_qn" else
+                         f"D={r['D']} U={r['U']} E={r['E']} F={r['F']}")
+                what = key if entry == "flux_point_qn" else \
+                    f"D{r['D']}F{r['F']}"
+                line = (f"kernel {name} ({what}, {shape}) {str(dtype)[6:]}: "
+                        f"max_abs_err {err:.3e} (bound {bound:.3e}, scale "
+                        f"{scale:.3e})")
+                if dtype == torch.float32:
+                    ins = (fargs[:5] + fargs[6:8]) if entry == \
+                        "flux_point_qn" else list(up)
+                    nbytes = sum(t.numel() * t.element_size()
+                                 for t in ins + pairs_of(got)
+                                 if t is not None)
+                    ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+                    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                    line += (f" kernel {ms:.4f} ms plain {plain_ms:.4f} ms; "
+                             f"moves {nbytes / 1e6:.3f} MB (bound "
+                             f"{bytes_ms:.4f} ms at 3.35 TB/s, share "
+                             f"{bytes_ms / ms:.3f})")
+                    recs[name] = dict(max_abs_err=err, ms=ms,
+                                      plain_ms=plain_ms, bound_ms=bytes_ms,
+                                      share=bytes_ms / ms)
+                log(line)
+                if not err <= bound:
+                    raise AssertionError(f"{name} disagrees with its plain "
+                                         f"version: {err} > {bound}")
+                del got, want, pairs
+            del f, up, fargs, cases
+    log(json.dumps({"k3 rows": recs}))
+    return recs
+
+
+def pairs_of(x):
+    """An entry's outputs as a list."""
+    return list(x) if isinstance(x, tuple) else [x]
+
+
+def check_k3(name, s, runs):
+    """Each K3 entry launched at least once per block on every one of
+    ``runs`` RK stages of solver ``s`` when it is viscous and not scalar,
+    never otherwise."""
+    from hifiles_tpu_torch.solver.ldg_element import (
+        flux_point_qn, solution_point_gradient)
+    fns = (flux_point_qn, solution_point_gradient)
+    on = bool(s.p.viscous) and s.p.equation == 0
+    need = runs * len(s._blocks) if on else 0
+    got = [f.launches for f in fns]
+    log(f"slice {name} K3 launches: " + ", ".join(
+        f"{f.__name__} {n} {dict(f.by_variant)}" for f, n in zip(fns, got))
+        + f" (expected >= {need}" + ("" if on else ", none") + ")")
+    if any(n < need for n in got) or (not on and any(got)):
+        raise AssertionError(f"K3 on {name}: launches {got}, expected "
+                             f"{'>= ' + str(need) if on else 'none'}")
+
+
 def phase_kernel():
     """Each variant of volume_tdisf against volume_tdisf_ref on the card;
     returns {name: record} with the f32 error and the kernel's and plain
@@ -1647,6 +1809,7 @@ def phase_slice(card, name, counts):
     # every block's volume stage on every RK stage of the 20 steps, and
     # the monitor's (equation 1's scalar volume flux is plain torch)
     need = check_k1(name, k1, s, 10 * 2 * s.n_stages + 1)
+    check_k3(name, s, 10 * 2 * s.n_stages + 1)
     if name == "sem":
         wale = next(v["key"] for v in VARIANTS if v["name"] == "wale")
         if counts[name].get(wale, 0) < need[0]:
@@ -1754,6 +1917,7 @@ def phase_channel(card, counts):
         raise AssertionError(f"volume_tdisf[smagorinsky] launched {smag} "
                              "times on the channel slice, expected >= "
                              f"{2 * 10 * s.n_stages}")
+    check_k3("channel", s, 10 * 2 * s.n_stages + 1)
     GRAPHS["channel"] = graph_vs_eager(card, "channel", s, p.dt)
     gated = s.snapshot()
     for step in range(30, 61, 10):
@@ -2770,6 +2934,7 @@ def main():
     phase_build()
     recs = phase_kernel()
     recs.update(phase_groups())
+    phase_k3()
     counts = {}
     log_memory("the kernel phase")
     phase_small(counts)

@@ -1,9 +1,12 @@
 // The volume kernel's work for one solution point, and the tiling that
 // hands points to it; shared by the kernel (volume_tdisf.cu) and the host
-// driver the CPU tests build from this header with g++.
+// driver the CPU tests build from this header with g++.  The physical
+// flux of one point (point_flux) is K3's too (ldg_point.cuh), which
+// projects it on the face normal instead.
 //
-// Per point: the 2-D or 3-D physical flux of the configuration, then the
-// adjugate transform  tdisf[l][i] = sum_m adj(J)[l][m] * f_i,m
+// Per point: the 2-D or 3-D physical flux of the configuration
+// (point_flux), then the adjugate transform
+//   tdisf[l][i] = sum_m adj(J)[l][m] * f_i,m   (point_tdisf)
 //   * the Euler flux, with the SA working variable advected (F = d + 3);
 //   * the Navier-Stokes flux with constant or Sutherland viscosity, and for
 //     F = d + 3 the SA eddy viscosity mu_t = nu~ f_v1, its conductivity
@@ -124,12 +127,12 @@ HFT_HD T softplus(T x) {
   return (x > T(0) ? x : T(0)) + dlog1p(dexp(-(x < T(0) ? -x : x)));
 }
 
-// The transformed flux of one point.  ``in`` gives the point's inputs:
-// u(i), g(dd, i) = d u_i / d x_dd, delta(), wdist(), extra(dd, i) and
-// jg(l, m), each read where the arithmetic first needs it;
-// ``out.put(l, i, v)`` takes tdisf[l][i].
-template <typename T, int D, int F, int SGS, bool INV, class In, class Out>
-HFT_HD void point_tdisf(const In& in, const Params<T>& prm, const Out& out) {
+// The physical flux of one point, f[i][dd] of field i along dimension dd.
+// ``in`` gives the point's inputs: u(i), g(dd, i) = d u_i / d x_dd,
+// delta(), wdist() and extra(dd, i), each read where the arithmetic first
+// needs it.
+template <typename T, int D, int F, int SGS, bool INV, class In>
+HFT_HD void point_flux(const In& in, const Params<T>& prm, T (&f)[F][D]) {
   static_assert(D == 2 || D == 3, "2-D or 3-D");
   static_assert(F == D + 2 || F == D + 3, "NS fields, or NS + SA");
   constexpr bool kSA = F == D + 3;  // the SA working variable is field F-1
@@ -148,8 +151,6 @@ HFT_HD void point_tdisf(const In& in, const Params<T>& prm, const Out& out) {
     q2 += v[m] * v[m];
   }
 
-  // f[i][dd]: flux of field i along dimension dd
-  T f[F][D];
   if (INV) {
     const T p = (prm.gamma - T(1)) * (q[kE] - T(0.5) * rho * q2);
     const T hp = q[kE] + p;
@@ -326,7 +327,15 @@ HFT_HD void point_tdisf(const In& in, const Params<T>& prm, const Out& out) {
       for (int i = 0; i < F; ++i) f[i][dd] += in.extra(dd, i);
     }
   }
+}
 
+// The transformed flux of one point: point_flux, then the adjugate
+// transform.  ``in`` gives point_flux's inputs and jg(l, m);
+// ``out.put(l, i, v)`` takes tdisf[l][i].
+template <typename T, int D, int F, int SGS, bool INV, class In, class Out>
+HFT_HD void point_tdisf(const In& in, const Params<T>& prm, const Out& out) {
+  T f[F][D];
+  point_flux<T, D, F, SGS, INV>(in, prm, f);
 #pragma unroll
   for (int l = 0; l < D; ++l) {
     T a[D];
@@ -492,34 +501,45 @@ int fill_table(HftVolumeSegment* seg, int n_seg, bool viscous,
   return tiles;
 }
 
-// Runs ``op.run<T, D, F, SGS, INV>()``, the instantiation of (d, F, the SGS
-// model, the inviscid switch), and returns its int.
-template <typename T, int D, int F, int SGS, class Op>
-int by_inv(bool inv, const Op& op) {
-  return inv ? op.template run<T, D, F, SGS, true>()
-             : op.template run<T, D, F, SGS, false>();
-}
-
+// Runs ``op.run<T, D, F, SGS>()``, the instantiation of (d, F, the SGS
+// model), and returns its int: K1's launches add the inviscid switch
+// (dispatch), K3's flux-point launches take it as it is.
 template <typename T, int D, int F, class Op>
-int by_sgs(int sgs, bool inv, const Op& op) {
+int by_sgs(int sgs, const Op& op) {
   switch (sgs) {
     case kSgsSmagorinsky:
-      return by_inv<T, D, F, kSgsSmagorinsky>(inv, op);
+      return op.template run<T, D, F, kSgsSmagorinsky>();
     case kSgsWale:
-      return by_inv<T, D, F, kSgsWale>(inv, op);
+      return op.template run<T, D, F, kSgsWale>();
     default:
-      return by_inv<T, D, F, kSgsNone>(inv, op);
+      return op.template run<T, D, F, kSgsNone>();
   }
 }
 
 template <typename T, class Op>
-int dispatch(int d, int f, int sgs, bool inv, const Op& op) {
+int dispatch_physics(int d, int f, int sgs, const Op& op) {
   if (d == 2) {
-    return f == 5 ? by_sgs<T, 2, 5>(sgs, inv, op)
-                  : by_sgs<T, 2, 4>(sgs, inv, op);
+    return f == 5 ? by_sgs<T, 2, 5>(sgs, op) : by_sgs<T, 2, 4>(sgs, op);
   }
-  return f == 6 ? by_sgs<T, 3, 6>(sgs, inv, op)
-                : by_sgs<T, 3, 5>(sgs, inv, op);
+  return f == 6 ? by_sgs<T, 3, 6>(sgs, op) : by_sgs<T, 3, 5>(sgs, op);
+}
+
+template <class Op>
+struct ByInv {
+  bool inv;
+  const Op& op;
+  template <typename T, int D, int F, int SGS>
+  int run() const {
+    return inv ? op.template run<T, D, F, SGS, true>()
+               : op.template run<T, D, F, SGS, false>();
+  }
+};
+
+// Runs ``op.run<T, D, F, SGS, INV>()``, the instantiation of (d, F, the SGS
+// model, the inviscid switch), and returns its int.
+template <typename T, class Op>
+int dispatch(int d, int f, int sgs, bool inv, const Op& op) {
+  return dispatch_physics<T>(d, f, sgs, ByInv<Op>{inv, op});
 }
 
 }  // namespace hft

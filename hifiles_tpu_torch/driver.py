@@ -83,7 +83,8 @@ def _option(argv, name, default):
 def main(argv=None):
     """Run the deck named by argv[0]; returns the exit code.  Besides the
     JAX driver's lines it prints the volume kernel's launches by variant
-    and by (variant, U, E), and the wall seconds of each part of the run
+    and by (variant, U, E), K3's two entries' launches by variant, and the
+    wall seconds of each part of the run
     (mesh read, solver set-up, restart read, the first chunk of steps, the
     later steps, monitor, plots, restart write), the steps synchronised
     with the card: the aggregates of the program's spans (tracing), which
@@ -97,6 +98,7 @@ def main(argv=None):
     from .io.history import HistoryWriter
     from .io.restart import read_restart, restart_filename, write_restart
     from .io.vtu import write_vtu
+    from .solver.ldg_element import flux_point_qn, solution_point_gradient
     from .solver.volume import volume_tdisf
 
     argv = argv if argv is not None else sys.argv[1:]
@@ -313,6 +315,8 @@ def main(argv=None):
     print("volume_tdisf launches by group: "
           + json.dumps([[key, shapes, n] for (key, shapes), n in
                         volume_tdisf.by_group.items()]))
+    for fn in (flux_point_qn, solution_point_gradient):
+        print(f"{fn.__name__} launches: " + json.dumps(dict(fn.by_variant)))
     print("wall seconds: " + json.dumps(wall_seconds()))
     print(f"total wall time {time.time() - t_start:.1f}s")
     return 0

@@ -17,7 +17,11 @@ indexed by slot = e*Pf + fpt, and the common fluxes return to the element
 flux points with one indexed store per face side.  The volume stage runs
 the hand-written CUDA kernel: one grouped launch for every block of the
 stage (volume.volume_tdisf_many, driven through the residual's volume
-request), or twice per block and stage with over-integration.
+request), or twice per block and stage with over-integration.  The
+gradient path's element side is hand-written CUDA too (K3,
+ldg_element.py): the physical gradient at the solution points, and at the
+flux points the gradient, the viscous flux and its normal projection in
+one pass, one launch each per block and stage.
 
 The face stage (``make_face_residual``) works on one or several element
 blocks: the blocks' flux-point rows side by side, (F, sum_t E_t*Pf_t), are
@@ -48,11 +52,12 @@ from ..models.viscous import adv_diff_viscous_flux
 from ..ops.les_filter import build_les_filter
 
 from .elements import ElementBlock
+from .ldg_element import (flux_point_qn, solution_point_gradient,
+                          solution_point_gradient_ref)
 from .residual import BlockArrays, ResidualConfig
 from .volume import (SGS_NONE, SGS_SMAGORINSKY, SGS_WALE, VolumeCall,
-                     VolumeParams, VolumeRequest, _library, sgs_flux_p,
-                     sgs_kwargs, softplus, sutherland_mu_p, visc_flux_p,
-                     visc_kwargs, volume_tdisf_many)
+                     VolumeParams, VolumeRequest, _library, softplus,
+                     sutherland_mu_p, volume_tdisf_many)
 
 # the Riemann solver codes of hifiles_tpu/ops/riemann.py (a JAX module)
 RUSANOV, ROEM, HLLC = 0, 2, 3
@@ -488,11 +493,6 @@ def sa_source_p(u, gr, wdist, d, *, gamma, mu_inf, rt_inf, c_sth, fix_vis,
     return prod + diff + dest
 
 
-def _add(a, b):
-    """[d][F] plane lists summed entry by entry."""
-    return [[x + y for x, y in zip(ra, rb)] for ra, rb in zip(a, b)]
-
-
 # ----------------------------------------------------------------------
 # the residual
 # ----------------------------------------------------------------------
@@ -580,8 +580,6 @@ class Physics:
         self.prm_over = dataclasses.replace(self.prm, viscous=False,
                                             sgs=SGS_NONE)
         self.prm_visc = dataclasses.replace(self.prm, inviscid=False)
-        self.visc_kw = visc_kwargs(self.prm, self.nF, d)
-        self.sgs_kw = sgs_kwargs(self.prm)
         self.sa_kw = dict(
             gamma=cfg.gamma, mu_inf=cfg.mu_inf, rt_inf=cfg.rt_inf,
             c_sth=cfg.c_sth, fix_vis=cfg.fix_vis, kappa=cfg.kappa,
@@ -608,13 +606,14 @@ class BlockStages:
         self.S = S = BlockArraysSoa(block, B, device, dtype)
         self.E, self.U, self.Pf = B.n_eles, B.n_upts, B.n_fpts
         self.n_slots = self.E * self.Pf
-        self.delta_u = self.wdist_u = None
+        self.delta_u = self.wdist_u = self.delta_f = self.wdist_f = None
         if ph.use_eddy:
             # SGS cutoff = filter_ratio * Deardorff delta
             # (ref:src/eles.cpp:2480)
             self.delta_u, self.wdist_u = (cfg.filter_ratio * S.delta_u,
                                           S.wdist_u)
-            self.delta_f = cfg.filter_ratio * S.delta_f
+            self.delta_f, self.wdist_f = (cfg.filter_ratio * S.delta_f,
+                                          S.wdist_f)
         if ph.use_similarity:
             self.les_filter = _tensor(
                 build_les_filter(block.ops, cfg.filter_type,
@@ -645,40 +644,36 @@ class BlockStages:
                 ).view(d, U, nF, E)
 
     def gradient(self, tg, delta):
-        """(tg plus the lift of the face corrections ``delta`` (F, E, Pf),
-        the physical gradient (1/det) JGinv^T . tg at the solution points
-        (d, U, F, E))."""
+        """(tg with the lift of the face corrections ``delta`` (F, E, Pf)
+        added in place by the lift GEMM, the physical gradient (1/det)
+        JGinv^T . tg at the solution points (d, U, F, E): K3, plain torch
+        on equation 1)."""
         S, d, U, Pf = self.S, self.ph.d, self.U, self.Pf
-        tg = tg + self.lift(S.opp_5_stack.view(d * U, Pf),
-                            delta).view(tg.shape)
-        gr = torch.stack([
-            sum(S.jg_u[m, l][:, None] * tg[m] for m in range(d))
-            * S.inv_det_u for l in range(d)])
-        return tg, gr
+        tg.view(d * U, -1).addmm_(S.opp_5_stack.view(d * U, Pf),
+                                  delta.reshape(-1, Pf).T)
+        grad = (solution_point_gradient_ref if self.ph.scalar
+                else solution_point_gradient)
+        return tg, grad(tg, S.jg_u, S.inv_det_u.squeeze(1))
 
-    def flux_point_viscous(self, u, uf, tg):
+    def flux_point_viscous(self, u, uf, tg, with_grad):
         """The element-side viscous (+SGS, + similarity) flux at every flux
         point, projected on the outward normal so that one plane per field
-        crosses the face instead of d gradient planes.  Returns the
-        physical gradient at the flux points (d x (F, E, Pf)), the normal
-        flux qn (F, E, Pf), and the similarity flux at the solution points
-        (d, U, F, E) or None."""
-        ph, S, d, nF = self.ph, self.S, self.ph.d, self.ph.nF
+        crosses the face instead of d gradient planes (K3, plain torch on
+        equation 1).  Returns the physical gradient at the flux points
+        (d, F, E, Pf) when ``with_grad`` (the boundary faces read it), the
+        normal flux qn (F, E, Pf), and the similarity flux at the solution
+        points (d, U, F, E) or None."""
+        ph, S, d = self.ph, self.S, self.ph.d
         tgf = self.to_fpts(tg)                            # (d, F, E, Pf)
-        g_f = [(sum(S.jg_f[m, l] * tgf[m] for m in range(d))
-                * S.inv_det_f) for l in range(d)]         # d x (F, E, Pf)
-        g_fp = [g.unbind(0) for g in g_f]
         if ph.scalar:
-            fv_e = adv_diff_flux_p(g_fp, ph.cfg.diff_coeff)
+            g_f = [(sum(S.jg_f[m, l] * tgf[m] for m in range(d))
+                    * S.inv_det_f) for l in range(d)]     # d x (1, E, Pf)
+            fv_e = adv_diff_flux_p([g.unbind(0) for g in g_f],
+                                   ph.cfg.diff_coeff)
             qn = torch.stack([sum(fv_e[m][0] * S.norm_f[m]
                                   for m in range(d))])    # (1, E, Pf)
             return g_f, qn, None
-        u_f = uf.unbind(0)
-        fv_e = visc_flux_p(u_f, g_fp, d, **ph.visc_kw)
-        if ph.use_eddy:
-            fv_e = _add(fv_e, sgs_flux_p(u_f, g_fp, self.delta_f, S.wdist_f,
-                                         d, **ph.sgs_kw))
-        extra = None
+        extra = extra_f = None
         if ph.use_similarity:
             up = u.unbind(1)
             Lu, Le = similarity_terms_p(up, self.dg_filter, d)
@@ -686,9 +681,10 @@ class BlockStages:
                                  similarity_flux_p(up, Lu, Le, ph.cfg.gamma,
                                                    d)])   # (d, U, F, E)
             # extrapolated for all dims in one GEMM (ref:src/eles.cpp:2817)
-            fv_e = _add(fv_e, [x.unbind(0) for x in self.to_fpts(extra)])
-        qn = torch.stack([sum(fv_e[m][i] * S.norm_f[m] for m in range(d))
-                          for i in range(nF)])            # (F, E, Pf)
+            extra_f = self.to_fpts(extra)
+        qn, g_f = flux_point_qn(tgf, uf, S.jg_f, S.inv_det_f, S.norm_f,
+                                ph.prm_visc, self.delta_f, self.wdist_f,
+                                extra_f, with_grad)
         return g_f, qn, extra
 
     def volume_call(self, u, gr, extra):
@@ -924,7 +920,8 @@ def make_face_residual(stages, FA: FaceArrays, ph: Physics, bc_fns=None,
                                                        g0_b, ramp)
                 grs, extras, g_fs, qns = [], [], [], []
                 for k, u, uf, (tg, gr) in zip(stages, us, ufs, grads):
-                    g_f, qn, extra = k.flux_point_viscous(u, uf, tg)
+                    g_f, qn, extra = k.flux_point_viscous(u, uf, tg,
+                                                          FA.has_bdy)
                     grs.append(gr)
                     extras.append(extra)
                     g_fs.append(g_f)

@@ -552,15 +552,36 @@ def volume_tdisf_groups(requests):
 
 
 COUNTERS = ("launches", "segments", "by_variant", "by_shape", "by_group")
+# the other hand kernels' wrappers (count_with), each with the counters
+# ``launches`` and ``by_variant``
+OTHER_COUNTED = []
+
+
+def _zero(f):
+    f.launches = 0
+    f.by_variant = collections.Counter()
 
 
 def reset_counters():
-    """Set every counter of the volume kernel to 0."""
+    """Set every counter of the volume kernel and of the OTHER_COUNTED
+    wrappers to 0."""
     f = volume_tdisf
-    f.launches = f.segments = 0
-    f.by_variant = collections.Counter()
+    _zero(f)
+    f.segments = 0
     f.by_shape = collections.Counter()
     f.by_group = collections.Counter()
+    for g in OTHER_COUNTED:
+        _zero(g)
+
+
+def count_with(*fns):
+    """Give the wrappers ``fns`` of other hand kernels the counters
+    ``launches`` and ``by_variant``, at 0, which reset_counters,
+    captured_launches and count_replay then carry with the volume
+    kernel's."""
+    for g in fns:
+        _zero(g)
+        OTHER_COUNTED.append(g)
 
 
 reset_counters()
@@ -569,25 +590,32 @@ reset_counters()
 def _counters():
     f = volume_tdisf
     return (f.launches, f.segments, collections.Counter(f.by_variant),
-            collections.Counter(f.by_shape), collections.Counter(f.by_group))
+            collections.Counter(f.by_shape), collections.Counter(f.by_group),
+            [(g.launches, collections.Counter(g.by_variant))
+             for g in OTHER_COUNTED])
 
 
 def captured_launches(capture):
     """Run ``capture()``, which records a step's launches into a CUDA graph
     without running them, and return the counters' increase over it
-    (launches, segments, by_variant, by_shape, by_group): the launches of
-    one replay.  The counters go back to what they were, since nothing
-    ran."""
+    (launches, segments, by_variant, by_shape, by_group, and (launches,
+    by_variant) of each OTHER_COUNTED wrapper): the launches of one
+    replay.  The counters go back to what they were, since nothing ran."""
     f = volume_tdisf
     before = _counters()
     capture()
     now = _counters()
     delta = (now[0] - before[0], now[1] - before[1]) + tuple(
-        b - a for a, b in zip(before[2:], now[2:]))
+        b - a for a, b in zip(before[2:5], now[2:5])) + (
+        [(b[0] - a[0], b[1] - a[1]) for a, b in zip(before[5], now[5])],)
     f.launches, f.segments = before[:2]
-    for name, was in zip(COUNTERS[2:], before[2:]):
+    for name, was in zip(COUNTERS[2:], before[2:5]):
         getattr(f, name).clear()
         getattr(f, name).update(was)
+    for g, (n, was) in zip(OTHER_COUNTED, before[5]):
+        g.launches = n
+        g.by_variant.clear()
+        g.by_variant.update(was)
     return delta
 
 
@@ -597,5 +625,8 @@ def count_replay(delta):
     f = volume_tdisf
     f.launches += delta[0]
     f.segments += delta[1]
-    for name, d in zip(COUNTERS[2:], delta[2:]):
+    for name, d in zip(COUNTERS[2:], delta[2:5]):
         getattr(f, name).update(d)
+    for g, (n, by) in zip(OTHER_COUNTED, delta[5]):
+        g.launches += n
+        g.by_variant.update(by)

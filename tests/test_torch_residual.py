@@ -73,3 +73,28 @@ def test_residual_matches_jax(solvers, case, compress, monkeypatch):
     assert scale > 0
     err = np.abs(got - want).max()
     assert err < 1e-10 * max(scale, 1.0), (err, scale)
+
+
+def test_lift_gemm_adds_in_place(solvers):
+    """BlockStages.gradient adds the face lift to tg inside the lift GEMM
+    (addmm_): the same as tg + the lift's own product to 1e-12 in f64, and
+    the physical gradient (K3's plain version on the CPU) the same as
+    from that sum."""
+    from hifiles_tpu_torch.solver.residual_soa import BlockStages, Physics
+    _, ts = solvers["viscous_hllc"]
+    ph = Physics(ts.rcfg, 3)
+    k = BlockStages(ts.block, ph, "cpu", torch.float64)
+    rng = np.random.default_rng(7)
+    u = torch.from_numpy(rng.random((k.U, ph.nF, k.E)) + 1.0)
+    delta = torch.from_numpy(rng.normal(size=(ph.nF, k.E, k.Pf)))
+    tg0 = k.tgrad(u)
+    want = tg0 + k.lift(k.S.opp_5_stack.view(3 * k.U, k.Pf),
+                        delta).view(tg0.shape)
+    tg, gr = k.gradient(tg0.clone(), delta)
+    scale = max(want.abs().max().item(), 1.0)
+    assert (tg - want).abs().max().item() <= 1e-12 * scale
+    want_gr = torch.stack([sum(k.S.jg_u[m, l][:, None] * want[m]
+                               for m in range(3)) * k.S.inv_det_u
+                           for l in range(3)])
+    scale = max(want_gr.abs().max().item(), 1.0)
+    assert (gr - want_gr).abs().max().item() <= 1e-12 * scale
