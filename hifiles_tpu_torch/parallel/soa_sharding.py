@@ -488,7 +488,7 @@ class ShardedLoop(BlockLoop):
         persistent buffer, and the copies that give every card every
         block's (the JAX psum, sharding.py:1081-1082)."""
         views, parts = self._views(self.u_soa), {}
-        for i, _, _, W in self._force:
+        for i, W, _, _ in self._force:
             ki = self._block_card(i)
             part = (W[:, None] * views[i][:, :2]).sum(dim=(0, 2))
             src = parts[i] = self._cbuf(("force", i), part, ki)

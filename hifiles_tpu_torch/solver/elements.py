@@ -199,12 +199,13 @@ class ElementBlock:
         def min_dist(pts):
             flat = pts.reshape(-1, pts.shape[-1])
             try:
-                # exact nearest-neighbor via KD-tree: the brute scan's
-                # (chunk, n_wall, d) broadcast temp is O(N*M) memory
-                # traffic and took ~45 min on a 33k-cell wall-modeled
-                # channel; the tree answers the same query in seconds
+                # exact nearest-neighbor via KD-trees, one per cluster
+                # (wall_clusters): the brute scan's (chunk, n_wall, d)
+                # broadcast temp is O(N*M) memory traffic and took ~45 min
+                # on a 33k-cell wall-modeled channel
                 from scipy.spatial import cKDTree
-                out = cKDTree(wall_pts).query(flat, workers=-1)[0]
+                out = np.min([cKDTree(c).query(flat, workers=-1)[0]
+                              for c in wall_clusters(wall_pts)], axis=0)
             except ImportError:            # pragma: no cover
                 out = np.empty(flat.shape[0])
                 chunk = 4096
@@ -224,6 +225,27 @@ class ElementBlock:
     @property
     def n_fpts(self):
         return self.ops.n_fpts
+
+
+def wall_clusters(pts: np.ndarray) -> list:
+    """The point cloud ``pts`` (M, d) cut at every empty slab wider than a
+    quarter of the cloud's largest extent (a channel's two walls),
+    recursively.  A KD-tree over a cloud that spans such a slab keeps
+    boxes across it that prune nothing for the points inside it (the
+    channel cell's 11M solution and flux points took 35 s against one
+    tree on an 8-core host; a tree a wall is about ten times faster).  The
+    nearest distance is the least over the clusters', the same exact
+    answer."""
+    ext = np.ptp(pts, axis=0).max()
+    for k in range(pts.shape[1]):
+        s = np.unique(pts[:, k])
+        if s.size > 1:
+            gaps = np.diff(s)
+            i = int(np.argmax(gaps))
+            if gaps[i] > 0.25 * ext:
+                lo = pts[:, k] < 0.5 * (s[i] + s[i + 1])
+                return wall_clusters(pts[lo]) + wall_clusters(pts[~lo])
+    return [pts]
 
 
 def mesh_shape_points(mesh: MeshData, sel: np.ndarray | None = None):

@@ -170,6 +170,7 @@ class MixedSolver(BlockLoop):
                 self._wm_tables = build_mixed_wm_tables(
                     mt, use_wm_of(run_input, mt.bdy_bcid))
             self._bc_fns = None
+            tracing.counter("boundary_faces", mt.bdy_slot.shape[0])
             if mt.bdy_slot.size:
                 self._bc_fns = mixed_bc_functions(run_input, mt, self.rcfg,
                                                   self.device, dtype,

@@ -36,7 +36,10 @@ generator stops once at its volume request, so that the shards of a card
 share its launch.  Its operations run in the tracing parts
 residual.face_states, residual.gradient, residual.volume,
 residual.common_flux and residual.divergence (tracing.part), none open
-across a stop.
+across a stop; with boundary faces, the boundary functions (bc.py) and
+the reads and stacks that only they use run in residual.boundary, twice a
+stage: the boundary states before the gradient, the boundary common flux
+after the interior one.
 """
 
 from __future__ import annotations
@@ -851,61 +854,87 @@ def make_face_residual(stages, FA: FaceArrays, ph: Physics, bc_fns=None,
                 ws.index_copy_(1, cols, u[upt, :, ele].T)
         return ws.view(nF, *(1,) * (len(FA.shape_b) - 1), -1).unbind(0)
 
-    def face_states(us, ramp, fluc=None):
+    def face_states(us):
         """Steps 1-2: the per-block flux-point rows (F, E_t, Pf_t) and
-        side by side (F, S), the interior faces' two sides (F, *face
-        plane), and the boundary faces' own states and inviscid ghost
-        states (F planes each; None without boundary faces).  The inlet's
+        side by side (F, S), and the interior faces' two sides (F, *face
+        plane)."""
+        # 1. extrapolate to flux points: one GEMM per block
+        ufs = [k.to_fpts(u) for k, u in zip(stages, us)]  # (F, E_t, Pf_t)
+        uf2 = flat(ufs)
+        # 2. all interior faces at once
+        u_l = read(uf2, FA.slot_l, FA.shape_i)            # (F, *face plane)
+        u_r = read(uf2, FA.slot_r, FA.shape_r)
+        return ufs, uf2, u_l, u_r
+
+    def boundary_states(uf2, ramp, fluc=None):
+        """The boundary faces' side of steps 2-3, from the flux-point rows
+        (F, S): their own states, their inviscid ghost states (bc.py; JAX
+        reads them from the same extrapolation, residual_soa.py:
+        1042-1047) and, viscous, their LDG common solution
+        (residual_soa.py:1068-1071) and its jump (F, *boundary plane)
+        (F planes each, the jump stacked; None inviscid).  The inlet's
         ``fluc`` enters the ghost states once, here: the LDG common
         solution and the boundary viscous flux reuse them away from walls
         (bc.BCFunctions.ldg_solution), as the JAX closures rebuild them
         with the same fluc (bc.py:327-357)."""
-        # 1. extrapolate to flux points: one GEMM per block
-        ufs = [k.to_fpts(u) for k, u in zip(stages, us)]  # (F, E_t, Pf_t)
-        uf2 = flat(ufs)
-        # 2. all interior faces at once; the boundary faces' own states
-        # and their inviscid ghost states (bc.py; JAX reads them from the
-        # same extrapolation, residual_soa.py:1042-1047)
-        u_l = read(uf2, FA.slot_l, FA.shape_i)            # (F, *face plane)
-        u_r = read(uf2, FA.slot_r, FA.shape_r)
-        u_b = g0_b = None
-        if FA.has_bdy:
-            u_b = read(uf2, FA.slot_b, FA.shape_b).unbind(0)
-            g0_b = bc_fns.ghost_state(u_b, norm_b, 0, ramp, fluc=fluc)
-        return ufs, uf2, u_l, u_r, u_b, g0_b
+        u_b = read(uf2, FA.slot_b, FA.shape_b).unbind(0)
+        g0_b = bc_fns.ghost_state(u_b, norm_b, 0, ramp, fluc=fluc)
+        u_c_b = delta_b = None
+        if cfg.viscous:
+            u_c_b = bc_fns.ldg_solution(u_b, norm_b, g0_b, ramp)
+            delta_b = torch.stack([c - a for c, a in zip(u_c_b, u_b)])
+        return u_b, g0_b, u_c_b, delta_b
 
-    def corrected_gradient(us, u_l, u_r, u_b, g0_b, ramp):
-        """Step 3's gradient: the LDG common solution on every face and,
-        per block, the transformed gradient with its face lift and the
-        physical gradient (d, U, F, E) (BlockStages.gradient).  Returns
-        the LDG sign planes, the boundary common solution and the
-        per-block (tg, gr)."""
+    def corrected_gradient(us, u_l, u_r, delta_b):
+        """Step 3's gradient: the LDG common solution on every interior
+        face, its jumps written with the boundary faces' ``delta_b`` (or
+        None), and per block the transformed gradient with its face lift
+        and the physical gradient (d, U, F, E) (BlockStages.gradient).
+        Returns the LDG sign planes and the per-block (tg, gr)."""
         sgn = ldg_sign_p(norm)
         bcoef = cfg.ldg_beta * sgn
         u_c = 0.5 * (u_l + u_r) - bcoef * (u_l - u_r)
-        u_c_b = delta_b = None
-        if FA.has_bdy:
-            # boundary LDG common solution (residual_soa.py:1068-1071)
-            u_c_b = bc_fns.ldg_solution(u_b, norm_b, g0_b, ramp)
-            delta_b = torch.stack([c - a for c, a in zip(u_c_b, u_b)])
         delta = write(u_c - u_l, u_c - u_r, delta_b)
-        return sgn, u_c_b, [k.gradient(k.tgrad(u), block_rows(delta, i))
-                            for i, (k, u) in enumerate(zip(stages, us))]
+        return sgn, [k.gradient(k.tgrad(u), block_rows(delta, i))
+                     for i, (k, u) in enumerate(zip(stages, us))]
+
+    def boundary_flux(us, bdy, g_fs):
+        """The boundary common flux (F, *boundary plane)
+        (residual_soa.py:1198-1226): Riemann against the ghost state plus,
+        viscous, the boundary viscous flux from the physical gradient at
+        the boundary flux points, read from the per-block flux-point
+        gradients ``g_fs`` (JAX: adjT_apply on the boundary rows,
+        residual_soa.py:1211); it carries no SGS term (bc.py:413-417)."""
+        u_b, g0_b, u_c_b, _ = bdy
+        fn_b = bc_fns.inv_common_flux(u_b, norm_b, g0_b)
+        if cfg.viscous:
+            g_b = [read(flat([g[l] for g in g_fs]), FA.slot_b,
+                        FA.shape_b).unbind(0) for l in range(d)]
+            wm_state = None if wm_index is None else wall_model_state(us)
+            fv_b = bc_fns.visc_common_flux(u_b, g_b, norm_b, u_c_b,
+                                           wm_state)
+            fn_b = [a + b for a, b in zip(fn_b, fv_b)]
+        return torch.stack(fn_b)
 
     def gradient(us, ramp=None):
         """The LDG-corrected physical gradient (d, U_t, F, E_t) of each
         block's state: what the viscous residual computes at step 3
         (residual.py:508-547 of the JAX package, make_gradient_fn)."""
-        _, _, u_l, u_r, u_b, g0_b = face_states(us, ramp)
-        return [gr for _, gr in corrected_gradient(us, u_l, u_r, u_b, g0_b,
-                                                   ramp)[2]]
+        _, uf2, u_l, u_r = face_states(us)
+        delta_b = boundary_states(uf2, ramp)[3] if FA.has_bdy else None
+        return [gr for _, gr in corrected_gradient(us, u_l, u_r,
+                                                   delta_b)[1]]
 
     def stages_of(us, fluc=None, ramp=None, out=None):
         part = tracing.part
         with part("residual.face_states"):
-            ufs, uf2, u_l, u_r, u_b, g0_b = face_states(us, ramp, fluc)
+            ufs, uf2, u_l, u_r = face_states(us)
             if FA.sharded:
                 send = uf2.index_select(1, FA.send)
+        bdy = None
+        if FA.has_bdy:
+            with part("residual.boundary"):
+                bdy = boundary_states(uf2, ramp, fluc)
         if FA.sharded:
             # the solution exchange (ref:src/mpi_inters.cpp:218-276)
             recv = yield send
@@ -914,10 +943,11 @@ def make_face_residual(stages, FA: FaceArrays, ph: Physics, bc_fns=None,
 
         # 3. viscous gradient path
         grs = extras = [None] * len(stages)
+        g_fs = None
         if cfg.viscous:
             with part("residual.gradient"):
-                sgn, u_c_b, grads = corrected_gradient(us, u_l, u_r, u_b,
-                                                       g0_b, ramp)
+                sgn, grads = corrected_gradient(
+                    us, u_l, u_r, None if bdy is None else bdy[3])
                 grs, extras, g_fs, qns = [], [], [], []
                 for k, u, uf, (tg, gr) in zip(stages, us, ufs, grads):
                     g_f, qn, extra = k.flux_point_viscous(u, uf, tg,
@@ -926,11 +956,6 @@ def make_face_residual(stages, FA: FaceArrays, ph: Physics, bc_fns=None,
                     extras.append(extra)
                     g_fs.append(g_f)
                     qns.append(qn)
-                if FA.has_bdy:
-                    # physical gradient at the boundary flux points (JAX:
-                    # adjT_apply on the boundary rows, residual_soa.py:1211)
-                    g_b = [read(flat([g[l] for g in g_fs]), FA.slot_b,
-                                FA.shape_b).unbind(0) for l in range(d)]
                 qn2 = flat(qns)
                 qn_l = read(qn2, FA.slot_l, FA.shape_i)
                 qn_r = read(qn2, FA.slot_r, FA.shape_r)
@@ -981,19 +1006,10 @@ def make_face_residual(stages, FA: FaceArrays, ph: Physics, bc_fns=None,
                 bl = 0.5 + cfg.ldg_beta * sgn
                 br = 0.5 - cfg.ldg_beta * sgn
                 fn = fn + bl * qn_l - br * qn_r - cfg.ldg_tau * (u_r - u_l)
-            fn_b = None
-            if FA.has_bdy:
-                # boundary common flux (residual_soa.py:1198-1226): Riemann
-                # against the ghost state plus the boundary viscous flux,
-                # which carries no SGS term (bc.py:413-417)
-                fn_b = bc_fns.inv_common_flux(u_b, norm_b, g0_b)
-                if cfg.viscous:
-                    wm_state = None if wm_index is None else \
-                        wall_model_state(us)
-                    fv_b = bc_fns.visc_common_flux(u_b, g_b, norm_b, u_c_b,
-                                                   wm_state)
-                    fn_b = [a + b for a, b in zip(fn_b, fv_b)]
-                fn_b = torch.stack(fn_b)
+        fn_b = None
+        if FA.has_bdy:
+            with part("residual.boundary"):
+                fn_b = boundary_flux(us, bdy, g_fs)
         # 6. write-back to element flux points + tdA scaling, 7. divergence
         with part("residual.divergence"):
             ntc = write(fn, -fn, fn_b)

@@ -41,6 +41,7 @@ import torch
 
 from .. import CTYPE_NAMES, HEX, PRISM, QUAD, TET, TRI, tracing
 from ..config.params import ADIABAT_WALL, CYCLIC, ISOTHERM_WALL, RunInput
+from ..io.history import CHUNK
 from ..mesh.core import NUM_F_PER_C, MeshData, build_faces
 from ..ops.les_filter import build_les_filter
 from ..ops.operators import (build_pri_ops, build_tensor_ops, build_tet_ops,
@@ -374,9 +375,11 @@ class BlockLoop:
                     slots[i].append(sl)
         if not any(slots):
             raise ValueError("body forcing: no -x cyclic inflow plane")
-        # per block with inflow faces: (block, slots, weights w * tdA, the
+        # per block with inflow faces: (block, the weights w * tdA and the
         # opp_0 extrapolation to the plane folded into one (U, E) weight
-        # plane: sum_s w_s u_f(s) = sum_{u,e} W[u, e] u[u, e])
+        # plane W: sum_s w_s u_f(s) = sum_{u,e} W[u, e] u[u, e]; for the
+        # host's mass-flux line, the inflow elements and their columns of
+        # W in float64)
         self._force = []
         for i, sl in enumerate(slots):
             if not sl:
@@ -386,8 +389,12 @@ class BlockLoop:
             wdA = b.ops.fpt_weights[fs % Pf] * b.tdA_fpts[fs]
             W = np.zeros((b.ops.n_upts, b.n_eles))
             np.add.at(W.T, fs // Pf, wdA[:, None] * b.ops.opp_0[fs % Pf])
-            self._force.append((i, fs, wdA, torch.as_tensor(
-                W, dtype=dt_, device=self._devs[i])))
+            cols = np.unique(fs // Pf)
+            di = self._devs[i]
+            self._force.append((
+                i, torch.as_tensor(W, dtype=dt_, device=di),
+                torch.as_tensor(cols, device=di),
+                torch.as_tensor(W[:, cols], dtype=torch.float64, device=di)))
         e1 = torch.zeros((nF, 1), dtype=dt_, device=dev)
         e1[1] = 1.0
         eE = torch.zeros((nF, 1), dtype=dt_, device=dev)
@@ -734,7 +741,7 @@ class BlockLoop:
         integrals are summed on the solver's device."""
         views = self._views(u)
         acc = None
-        for i, _, _, W in self._force:
+        for i, W, _, _ in self._force:
             part = (W[:, None] * views[i][:, :2]).sum(dim=(0, 2)).to(
                 self.device)
             acc = part if acc is None else acc + part
@@ -791,19 +798,18 @@ class BlockLoop:
         689-711, multiblock.py:876-901; the rows of the reference's
         massflux.dat, ref:src/eles.cpp:5430-5453).  The body-force value
         is the one the next step applies from this state; None without
-        forcing."""
+        forcing.  The plane integrals run on the device in float64 over
+        the inflow elements alone, the folded weights W of the step's
+        forcing (_setup_featured); two numbers cross to the host."""
         if not self._forcing:
             return None
-        us = self._to_numpy(self.u_soa)
-        mflux = rho_int = 0.0
-        for i, fs, wdA, _ in self._force:
-            d2 = np.einsum("pu,euf->epf", self._blocks[i].ops.opp_0,
-                           us[i].astype(np.float64)).reshape(
-                               -1, self.n_fields)
-            uf = d2[fs]
-            w = np.asarray(wdA, dtype=np.float64)
-            mflux += float((w * uf[:, 1]).sum())
-            rho_int += float((w * uf[:, 0]).sum())
+        views = self._views(self.u_soa)
+        acc = None
+        for i, _, cols, W in self._force:
+            u = views[i][:, :2].index_select(2, cols).to(torch.float64)
+            part = (W[:, None] * u).sum(dim=(0, 2)).to(self.device)
+            acc = part if acc is None else acc + part
+        rho_int, mflux = acc.tolist()
         ubulk = 0.0 if rho_int == 0 else mflux / rho_int
         p = self.p
         if p.body_force_type == 1:
@@ -850,14 +856,29 @@ class BlockLoop:
             tot += np.einsum("ec,ecf->f", w, disu_cub)
         return tot
 
-    def _monitor_residual(self):
-        """Residual of the current state, a tuple of (E, U, F) numpy
-        arrays, one per block: issued (span monitor.residual), then waited
-        for and copied to the host (monitor.to_host)."""
+    def _monitor_residual(self, norm_type):
+        """The residual of the current state reduced on each block's
+        device to one float64 number a field (sum |r|, sum r^2 or max |r|
+        over the block's points, history.CHUNK elements a pass), issued
+        (span monitor.residual), then waited for and copied to the host
+        (monitor.to_host): a (blocks, F) array, and the points summed."""
         with tracing.span("monitor.residual"):
-            r = self._rhs(self.u_soa, None)
+            parts, n_pts = [], 0
+            for v in self._views(self._rhs(self.u_soa, None)):
+                n_pts += v.shape[0] * v.shape[2]
+                acc = torch.zeros(v.shape[1], dtype=torch.float64,
+                                  device=v.device)
+                for e0 in range(0, v.shape[2], CHUNK):
+                    x = v[:, :, e0:e0 + CHUNK].to(torch.float64)
+                    if norm_type == 1:
+                        acc = acc + x.abs().sum(dim=(0, 2))
+                    elif norm_type == 2:
+                        acc = acc + x.square().sum(dim=(0, 2))
+                    else:
+                        acc = torch.maximum(acc, x.abs().amax(dim=(0, 2)))
+                parts.append(acc)
         with tracing.span("monitor.to_host"):
-            return self._to_numpy(r)
+            return np.stack([x.cpu().numpy() for x in parts]), n_pts
 
     def _check_cfl_dt(self):
         """The CFL time step reads |v| + c, which equation 1's one scalar
@@ -874,11 +895,17 @@ class BlockLoop:
         """Residual norm over every block's solution points with the
         reference's normalization (ref:src/output.cpp:2166-2247): L1 =
         sum|r|/n_pts, L2 = sqrt(sum r^2)/n_pts, inf = max|r|.  ``r``: the
-        (E, U, F) residual per block (default: the current state's).
-        Accumulates in f64 on the host like the reference's double
-        accumulators."""
+        (E, U, F) residual per block (default: the current state's, whose
+        sums run on its device).  Accumulates in f64 like the reference's
+        double accumulators."""
         if r is None:
-            r = self._monitor_residual()
+            parts, n_pts = self._monitor_residual(norm_type)
+            with tracing.span("monitor.norm"):
+                if norm_type == 1:
+                    return parts.sum(axis=0) / n_pts
+                if norm_type == 2:
+                    return np.sqrt(parts.sum(axis=0)) / n_pts
+                return parts.max(axis=0)
         with tracing.span("monitor.norm"):
             rs = [np.asarray(x, dtype=np.float64) for x in _per_block(r)]
             n_pts = sum(x.shape[0] * x.shape[1] for x in rs)
@@ -915,6 +942,7 @@ class Solver(BlockLoop):
                     self._bc_flags, self.n_dims))
 
         self._bc_fns = None
+        tracing.counter("boundary_faces", self.block.bdy_slot.shape[0])
         if self.block.bdy_slot.size:
             with tracing.span("setup.boundary"):
                 self._bc_fns = make_bc_functions(run_input, self.block,

@@ -31,10 +31,11 @@ count (also the counter ``captured_nodes``) and its parts' ranges.
 Parts do not nest, and no part stays open across a ``yield`` of the
 residual's stage generator.
 
-The program's counters sit in the record too (``counters``: so far
-``captured_nodes``).  The volume kernel's launch counters stay on
-``solver.volume.volume_tdisf``, and the captures and replays of a run on
-the solver (``captures``, ``replays``).
+The program's counters sit in the record too (``counters``:
+``captured_nodes``; ``boundary_faces``, the boundary faces of the step's
+face stage, set by ``counter`` at set-up).  The volume kernel's launch
+counters stay on ``solver.volume.volume_tdisf``, and the captures and
+replays of a run on the solver (``captures``, ``replays``).
 
 The record is the process's: the program is single-threaded, and the
 spans of one thread nest.  ``record()`` reads it, ``reset()`` empties it.
@@ -151,6 +152,11 @@ def traced(name: str):
                 return fn(*args, **kwargs)
         return inner
     return wrap
+
+
+def counter(name: str, value) -> None:
+    """Set the program's counter ``name`` to ``value``."""
+    _rec.counters[name] = value
 
 
 @contextlib.contextmanager

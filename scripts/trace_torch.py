@@ -1,14 +1,14 @@
 """The program's own tracing (hifiles_tpu_torch.tracing) on the card, read
 the way the benchmark reads it, and the checks on it:
 
-  python3 scripts/trace_torch.py [--n N] [--chunk-steps C] [--seconds S]
-                                 [--seed SEED] [--driver-n M]
-                                 [--driver-steps K]
+  python3 scripts/trace_torch.py [--workload W] [--n N] [--chunk-steps C]
+                                 [--seconds S] [--seed SEED]
+                                 [--driver-n M] [--driver-steps K]
                                  [--out chiprun_out/trace_torch.json]
 
-Phase ``cell``: the benchmark's cell tgv_re1600_160.mon50 (bench_h100) at
-N^3 hexes (default the cell's own 32^3; chunks of C steps, default its
-traffic's 50), traced as ``--trace 1`` traces
+Phase ``cell``: the benchmark's cell W (bench_h100; default
+tgv_re1600_160.mon50) on its own mesh, or at N^3 hexes with ``--n``
+(chunks of C steps, default its traffic's), traced as ``--trace 1`` traces
 it, its per-layer metrics and program_trace.report: set-up by
 ``setup.*`` span, the monitor row by ``monitor.*`` span, the replayed
 step's device ms by part and kernel class, the traced chunk's idle gaps by
@@ -54,10 +54,12 @@ def card():
     return out.stdout.strip()
 
 
-def run_cell(n, seed, seconds, device="cuda", chunk_steps=None):
-    """One traced run of CELL at n^3 hexes on ``device`` (chunks of
-    ``chunk_steps`` steps, default the traffic's): (result, its lines for
-    stderr, program_trace.report, checks)."""
+def run_cell(n, seed, seconds, device="cuda", chunk_steps=None,
+             workload=CELL):
+    """One traced run of ``workload`` on its mesh, or at n^3 hexes where
+    ``n``, on ``device`` (chunks of ``chunk_steps`` steps, default the
+    traffic's): (result, its lines for stderr, program_trace.report,
+    checks)."""
     from bench_h100 import program_trace as pt
     from bench_h100 import run, spec
     from bench_h100.metrics.common import replay_ops, untraced
@@ -73,9 +75,10 @@ def run_cell(n, seed, seconds, device="cuda", chunk_steps=None):
         return read
     spec.reader = keeping
     try:
-        cell = spec.Cell(spec.load(), CELL)
-        cell.config = dict(cell.config,
-                           mesh=dict(cell.config["mesh"], n=[n, n, n]))
+        cell = spec.Cell(spec.load(), workload)
+        if n:
+            cell.config = dict(cell.config,
+                               mesh=dict(cell.config["mesh"], n=[n, n, n]))
         if chunk_steps:
             cell.traffic = dict(cell.traffic, chunk_steps=chunk_steps)
         result, lines = run.run_cell(cell, seed, seconds, 1, device)
@@ -97,6 +100,7 @@ def run_cell(n, seed, seconds, device="cuda", chunk_steps=None):
     checks = {
         "replay_ops": len(ops), "traced_steps": steps,
         "captured_nodes": None if cap is None else cap["nodes"],
+        "counters": prog["counters"],
         "ops_beyond_replays": (None if cap is None
                                else len(ops) - steps * cap["nodes"]),
         "replay_parts_found": pt.replay_parts(rec, prog) is not None,
@@ -222,7 +226,8 @@ def span_cost(n=100_000):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--n", type=int, default=32)
+    ap.add_argument("--workload", default=CELL)
+    ap.add_argument("--n", type=int, default=0)
     ap.add_argument("--chunk-steps", type=int, default=0)
     ap.add_argument("--seconds", type=float, default=30.0)
     ap.add_argument("--seed", type=int, default=3000001801)
@@ -232,9 +237,10 @@ def main(argv=None):
     a = ap.parse_args(argv)
     out = {"card": card()}
     result, lines, rep, checks = run_cell(a.n, a.seed, a.seconds,
-                                          chunk_steps=a.chunk_steps)
-    out["cell"] = dict(n=a.n, chunk_steps=a.chunk_steps, result=result,
-                       report=rep, checks=checks)
+                                          chunk_steps=a.chunk_steps,
+                                          workload=a.workload)
+    out["cell"] = dict(workload=a.workload, n=a.n, chunk_steps=a.chunk_steps,
+                       result=result, report=rep, checks=checks)
     for line in lines:
         print(line, file=sys.stderr)
     if a.driver_n:

@@ -232,6 +232,26 @@ def test_history_matches_jax(case, tmp_path):
         assert np.abs(x - y).max() <= 1e-10 * np.abs(x).max()
 
 
+@pytest.mark.parametrize("case", ["quad", "hex"])
+def test_monitor_sums_in_chunks_match_jax(case, monkeypatch):
+    """The residual norms and every integral quantity, summed on the
+    solver's device a few elements at a time (5 a pass, so several
+    passes), against the JAX solver's."""
+    from hifiles_tpu_torch.solver import solver as tsolver
+    monkeypatch.setattr(thistory, "CHUNK", 5)
+    monkeypatch.setattr(tsolver, "CHUNK", 5)
+    p, mesh = CASES[case]()
+    js, ts = pair(p, mesh)
+    assert ts.u_soa.shape[-1] > 3 * 5
+    for nt in (1, 2, 3):
+        want, got = np.asarray(js.residual_norm(nt)), ts.residual_norm(nt)
+        assert np.abs(got - want).max() <= 1e-10 * np.abs(want).max(), nt
+    want = jhistory.integral_quantities(js, list(INTEGRALS))
+    got = thistory.integral_quantities(ts, list(INTEGRALS))
+    for n in INTEGRALS:
+        assert abs(got[n] - want[n]) <= 1e-10 * max(abs(want[n]), 1e-300), n
+
+
 def h5_tree(path):
     """{name: (value, attrs)} of every group and dataset of an HDF5 file,
     the root's attributes under "/"."""

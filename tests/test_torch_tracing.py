@@ -11,7 +11,9 @@
 - a capture through tests/test_torch_graph.py's stand-in graph, its
   nodes counted by a stand-in that counts the step's tensor operations,
   gives part ranges that tile [0, captured_nodes): every operation of the
-  captured step lies in one part;
+  captured step lies in one part; residual.boundary is there exactly
+  where the mesh has boundary faces, whose count (2 nx nz in a channel)
+  is the counter ``boundary_faces``;
 - the driver's ``wall seconds:`` line keeps its parts and ``--profile``
   still writes its trace, whose ``hf.*`` ranges nest as the record.
 """
@@ -36,13 +38,14 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "scripts"))
 import test_torch_graph as graph_tests  # noqa: E402
 from test_face_path import tgv_input  # noqa: E402
+from test_torch_featured import channel_twin  # noqa: E402
 from trace_torch import matches_trace  # noqa: E402
 
 torch.set_num_threads(1)
 
 PARTS = {"step.pre", "step.update", "step.post", "residual.face_states",
          "residual.gradient", "residual.volume", "residual.common_flux",
-         "residual.divergence", "residual.halo"}
+         "residual.divergence", "residual.halo", "residual.boundary"}
 
 
 @pytest.fixture(autouse=True)
@@ -183,7 +186,7 @@ def test_history_row_records_its_five_parts(tmp_path):
     kids = children(rec, row)
     assert [k.name for k in kids] == [
         "monitor.residual", "monitor.to_host", "monitor.norm",
-        "monitor.to_host", "monitor.integrals", "monitor.write"]
+        "monitor.integrals", "monitor.to_host", "monitor.write"]
     assert sum(k.end_ns - k.start_ns for k in kids) >= \
         0.9 * (row.end_ns - row.start_ns)
 
@@ -223,11 +226,25 @@ class CountingGraph(graph_tests.IdentityGraph):
         return self.ops.n
 
 
+def walled_channel():
+    """The channel twin's deck on a 3 x 4 x 2 channel: 2 * 3 * 2 wall
+    faces, none of the other axes' counts."""
+    from hifiles_tpu.mesh.generate import channel_hex_mesh
+    p, _ = channel_twin(spinup_steps=1.5)
+    s = graph_tests.port(p, channel_hex_mesh(3, 4, 2))
+    return s, p, p.dt
+
+
+# boundary faces of the walled configurations: 2 nx nz in a channel
+WALL_FACES = {"channel_twin": 2 * 4 * 2, "walled_channel": 2 * 3 * 2}
+
+
 @pytest.mark.parametrize("name", ["plain", "channel_twin", "svv", "shock",
                                   "sem_replay_draws", "mixed_tri_quad",
-                                  "tgv_4_shards"])
+                                  "tgv_4_shards", "walled_channel"])
 def test_captured_parts_tile_the_graph(name):
-    s, p, dt = graph_tests.build(name, seam=False)
+    s, p, dt = (walled_channel() if name == "walled_channel"
+                else graph_tests.build(name, seam=False))
     CountingGraph.seam(s)
     s.run(3, dt=dt)
     rec = tracing.record()
@@ -243,6 +260,12 @@ def test_captured_parts_tile_the_graph(name):
     assert {"residual.face_states", "residual.gradient", "residual.volume",
             "residual.common_flux", "residual.divergence",
             "step.update"} <= names
+    faces = rec["counters"]["boundary_faces"]
+    assert ("residual.boundary" in names) is (faces > 0)
+    if name in WALL_FACES:
+        assert faces == WALL_FACES[name]
+    if name in ("plain", "svv", "shock", "mixed_tri_quad", "tgv_4_shards"):
+        assert faces == 0
     assert s.capture_seconds == pytest.approx(
         (spans_named(rec, "run.capture")[0].end_ns
          - spans_named(rec, "run.capture")[0].start_ns) * 1e-9)
