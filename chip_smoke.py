@@ -31,7 +31,12 @@ comparison asks for (``graph=False``):
                the blocks of bench.py's `plain`, `smag`, `rans`,
                `channel` with boundary faces, `mixed` and `mixed3d`)
                against their plain versions (f32 and f64), timed beside
-               them and their byte bound;
+               them and their byte bound; then K4 (K4_ROWS: the interior
+               faces of both benchmark cells, `plain`, `rans`, a `plain`
+               x4 shard with its halo faces, and the flat planes of
+               `mixed` and `mixed3d`, on synthetic slot tables of the same
+               shapes) against its plain version (f32 and f64), timed
+               beside it, its naive thread mapping and its byte bound;
   4. small   - the port on the card against the port on the CPU (f64, 2
                steps) for `plain` and each feature configuration (4^3 p=3),
                the wall-bounded ones (the channel's small twin, the
@@ -1495,6 +1500,221 @@ def check_k3(name, s, runs):
                              f"{'>= ' + str(need) if on else 'none'}")
 
 
+# K4 (solver/common_flux.py): the interior common flux at the face planes
+# of the paths that launch it (d, F, riemann_solve_type, viscous, the
+# layout: a hex box (nx, ny, nz) with ny walls or not, its faces' planes
+# (25, faces); or flat planes of `n` points in face runs of `nfp` (a mixed
+# mesh); a shard of 16^3 hexes in z slabs, its halo faces last)
+K4_ROWS = [
+    dict(name="tgv_re1600_160", D=3, F=5, solver=3, box=(32, 32, 32)),
+    dict(name="channel_retau395", D=3, F=5, solver=3, box=(32, 40, 32),
+         walls=True),
+    dict(name="plain", D=3, F=5, solver=3, box=(16, 16, 16)),
+    dict(name="rans", D=3, F=6, solver=0, box=(16, 16, 16)),
+    dict(name="plain_x4_shard", D=3, F=5, solver=3, box=(16, 16, 4),
+         halo=True),
+    dict(name="mixed", D=2, F=4, solver=3, flat=115200, nfp=5),
+    dict(name="mixed3d", D=3, F=5, solver=0, flat=442368, nfp=6),
+]
+
+
+def hex_box_faces(nx, ny, nz, walls=False, halo=False, nfp=25):
+    """Slot tables of the interior faces of a box of hexes, p = 4 (6 local
+    faces of 25 points, 150 slots an element; slot = e*150 + face*25 +
+    point), in the face order of the element-major build (x, y, z faces
+    of each element), each face's l side the one with the smaller local
+    face (orient_faces), its r side's points transposed; y periodic
+    unless ``walls``; with ``halo`` the z faces of the bottom and top
+    layers leave the box and come last, their r side elsewhere.  Returns
+    (slot_l (25, C), slot_r (25, n_r), n_slots)."""
+    import numpy as np
+    q = int(round(nfp ** 0.5))
+    pts = np.arange(nfp)
+    tr = (pts % q) * q + pts // q
+    e = lambda i, j, k: ((k % nz) * ny + (j % ny)) * nx + (i % nx)
+    faces, halos = [], []
+    for k in range(nz):
+        for j in range(ny):
+            for i in range(nx):
+                me = e(i, j, k)
+                # x: my +x face (2) against the neighbour's -x face (4)
+                faces.append((me, 2, e(i + 1, j, k), 4))
+                if not (walls and j == ny - 1):
+                    faces.append((e(i, j + 1, k), 1, me, 3))
+                if halo and k == nz - 1:
+                    halos.append((me, 5))
+                elif halo and k == 0:
+                    halos.append((me, 0))
+                    faces.append((e(i, j, k + 1), 0, me, 5))
+                else:
+                    faces.append((e(i, j, k + 1), 0, me, 5))
+    f = np.array(faces)
+    slot_l = f[:, 0] * 6 * nfp + f[:, 1] * nfp
+    slot_r = f[:, 2] * 6 * nfp + f[:, 3] * nfp
+    slot_l = slot_l[None, :] + pts[:, None]
+    slot_r = slot_r[None, :] + tr[:, None]
+    if halos:
+        h = np.array(halos)
+        slot_h = (h[:, 0] * 6 * nfp + h[:, 1] * nfp)[None, :] + pts[:, None]
+        slot_l = np.concatenate([slot_l, slot_h], axis=1)
+    return slot_l, slot_r, nx * ny * nz * 6 * nfp
+
+
+def flat_faces(n, nfp, seed=0):
+    """Slot tables of ``n`` interior points in flat planes (a mixed mesh):
+    the slot space is runs of ``nfp`` slots, paired at random into faces
+    ordered by their l run, the r run's points reversed.  Returns (slot_l
+    (n,), slot_r (n,), n_slots)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    runs = rng.permutation(2 * n // nfp).reshape(-1, 2)
+    runs.sort(axis=1)
+    runs = runs[np.argsort(runs[:, 0])]
+    pts = np.arange(nfp)
+    slot_l = (runs[:, :1] * nfp + pts[None, :]).ravel()
+    slot_r = (runs[:, 1:] * nfp + pts[None, ::-1]).ravel()
+    return slot_l, slot_r, 2 * n
+
+
+def k4_inputs(r, dtype, device, seed=0):
+    """Seeded operands of K4 row ``r``: (u_l, u_r, qn_l, qn_r, norm,
+    slot_l, slot_r, n_slots); states of a TGV at Mach 0.1 to 0.5, unit
+    normals on the axes (a hex box) or anywhere (flat)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    D, F = r["D"], r["F"]
+    if "box" in r:
+        slot_l, slot_r, n_slots = hex_box_faces(
+            *r["box"], walls=r.get("walls", False),
+            halo=r.get("halo", False))
+    else:
+        slot_l, slot_r, n_slots = flat_faces(r["flat"], r["nfp"], seed)
+    shape = slot_l.shape
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                  device=device)
+
+    def states():
+        rho = 1.0 + 0.1 * rng.random(shape)
+        vel = rng.normal(size=(D,) + shape) * rng.uniform(0.1, 0.5, shape)
+        u = np.empty((F,) + shape)
+        u[0] = rho
+        u[1:D + 1] = rho * vel
+        u[D + 1] = (1.0 / 1.4) / 0.4 + 0.5 * rho * (vel ** 2).sum(0)
+        if F == D + 3:
+            u[D + 2] = rng.uniform(0.0, 0.01, shape)
+        return u
+    if "box" in r:
+        n = np.zeros((D,) + shape)
+        n[rng.integers(0, D, shape[-1]), :, np.arange(shape[-1])] = 1.0
+    else:
+        n = rng.normal(size=(D,) + shape)
+        n /= np.linalg.norm(n, axis=0)
+    idx = lambda a: torch.as_tensor(np.ascontiguousarray(a).ravel(),
+                                    device=device)
+    return (t(states()), t(states()),
+            t(rng.normal(size=(F,) + shape) * 0.01),
+            t(rng.normal(size=(F,) + shape) * 0.01), t(n), idx(slot_l),
+            idx(slot_r), n_slots)
+
+
+def phase_k4():
+    """Each K4 row against its plain version on the card (f32 and f64, at
+    KERNEL_TOL; both thread mappings); in f32 the
+    kernel's time, the naive thread mapping's, the plain version's and
+    the bound: the face planes read once and the flux written once at
+    3.35 TB/s (33 values a point viscous at d = 3, F = 5), the int64
+    slots' 16 B a point besides.  Returns {"k4 [<row>]": record}."""
+    import dataclasses
+    import torch
+    from hifiles_tpu_torch.solver.common_flux import (
+        _lib, common_flux, common_flux_ref, launch, variant)
+    from hifiles_tpu_torch.solver.residual import ResidualConfig
+    dev = torch.device("cuda", 0)
+    lib = _lib(dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def naive(*args):
+        """common_flux with the thread a point mapping (the C entry kept
+        for this comparison), outside the wrapper and its counter."""
+        *ops, cfg = args
+        out = torch.empty((ops[0].shape[0], ops[7]), dtype=ops[0].dtype,
+                          device=dev)
+        entry = (lib.hft_common_flux_naive_f32 if out.dtype == torch.float32
+                 else lib.hft_common_flux_naive_f64)
+        launch(entry, *ops, cfg, out, dev.index, stream)
+        return out
+    recs = {}
+    for r in K4_ROWS:
+        cfg = ResidualConfig(equation=0, riemann_solve_type=r["solver"],
+                             viscous=True, gamma=1.4, ldg_beta=0.5,
+                             ldg_tau=0.0, n_fields=r["F"])
+        for dtype in (torch.float32, torch.float64):
+            args = k4_inputs(r, dtype, dev)
+            u_l, slot_l, slot_r = args[0], args[5], args[6]
+            written = torch.cat([slot_l, slot_r])
+            want = common_flux_ref(*args, cfg)[:, written]
+            scale = want.abs().max().item()
+            bound = KERNEL_TOL[str(dtype)[6:]] * max(scale, 1.0)
+            errs = {}
+            for mapping in (common_flux, naive):
+                out = mapping(*args, cfg)
+                torch.cuda.synchronize()
+                errs[mapping is naive] = (out[:, written]
+                                          - want).abs().max().item()
+                del out
+            name = f"k4 [{r['name']}]"
+            rows = u_l.shape[1] if u_l.dim() == 3 else 1
+            layout = (f"{tuple(u_l.shape[1:])} planes, n_r "
+                      f"{slot_r.numel() // rows}")
+            line = (f"kernel {name} ({variant(cfg, r['F'], r['D'])}, "
+                    f"{layout}) {str(dtype)[6:]}: max_abs_err "
+                    f"{errs[False]:.3e}, naive {errs[True]:.3e} (bound "
+                    f"{bound:.3e}, scale {scale:.3e})")
+            if dtype == torch.float32:
+                elt = u_l.element_size()
+                planes = sum(t.numel() for t in args[:5]) * elt + \
+                    r["F"] * written.numel() * elt
+                slots = written.numel() * 8
+                ms = cuda_ms(lambda: common_flux(*args, cfg))
+                naive_ms = cuda_ms(lambda: naive(*args, cfg))
+                plain_ms = cuda_ms(lambda: common_flux_ref(*args, cfg))
+                bound_ms = planes / HBM_BYTES_PER_S * 1e3
+                slots_ms = (planes + slots) / HBM_BYTES_PER_S * 1e3
+                line += (f" kernel {ms:.4f} ms naive {naive_ms:.4f} ms "
+                         f"plain {plain_ms:.4f} ms; moves {planes / 1e6:.3f}"
+                         f" MB of planes (bound {bound_ms:.4f} ms at 3.35 "
+                         f"TB/s, share {bound_ms / ms:.3f}, naive "
+                         f"{bound_ms / naive_ms:.3f}), {slots / 1e6:.3f} MB "
+                         f"of slots besides (with them {slots_ms:.4f} ms, "
+                         f"share {slots_ms / ms:.3f})")
+                recs[name] = dict(max_abs_err=errs[False], ms=ms,
+                                  naive_ms=naive_ms, plain_ms=plain_ms,
+                                  bound_ms=bound_ms, share=bound_ms / ms,
+                                  naive_share=bound_ms / naive_ms,
+                                  bound_with_slots_ms=slots_ms)
+            log(line)
+            if not max(errs.values()) <= bound:
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version: {errs} > {bound}")
+            del args, want, written
+    log(json.dumps({"k4 rows": recs}))
+    return recs
+
+
+def check_k4(name, s, runs):
+    """K4 launched at least once per residual (block set of a card or
+    shard) on every one of ``runs`` RK stages of solver ``s``."""
+    from hifiles_tpu_torch.solver.common_flux import common_flux
+    need = runs
+    got = common_flux.launches
+    log(f"slice {name} K4 launches: {got} {dict(common_flux.by_variant)} "
+        f"(expected >= {need})")
+    if got < need:
+        raise AssertionError(f"K4 on {name}: launches {got}, expected >= "
+                             f"{need}")
+
+
 def phase_kernel():
     """Each variant of volume_tdisf against volume_tdisf_ref on the card;
     returns {name: record} with the f32 error and the kernel's and plain
@@ -1810,6 +2030,7 @@ def phase_slice(card, name, counts):
     # the monitor's (equation 1's scalar volume flux is plain torch)
     need = check_k1(name, k1, s, 10 * 2 * s.n_stages + 1)
     check_k3(name, s, 10 * 2 * s.n_stages + 1)
+    check_k4(name, s, 10 * 2 * s.n_stages + 1)
     if name == "sem":
         wale = next(v["key"] for v in VARIANTS if v["name"] == "wale")
         if counts[name].get(wale, 0) < need[0]:
@@ -1918,6 +2139,7 @@ def phase_channel(card, counts):
                              "times on the channel slice, expected >= "
                              f"{2 * 10 * s.n_stages}")
     check_k3("channel", s, 10 * 2 * s.n_stages + 1)
+    check_k4("channel", s, 10 * 2 * s.n_stages + 1)
     GRAPHS["channel"] = graph_vs_eager(card, "channel", s, p.dt)
     gated = s.snapshot()
     for step in range(30, 61, 10):
@@ -2935,6 +3157,7 @@ def main():
     recs = phase_kernel()
     recs.update(phase_groups())
     phase_k3()
+    phase_k4()
     counts = {}
     log_memory("the kernel phase")
     phase_small(counts)

@@ -98,6 +98,7 @@ def main(argv=None):
     from .io.history import HistoryWriter
     from .io.restart import read_restart, restart_filename, write_restart
     from .io.vtu import write_vtu
+    from .solver.common_flux import common_flux
     from .solver.ldg_element import flux_point_qn, solution_point_gradient
     from .solver.volume import volume_tdisf
 
@@ -315,7 +316,7 @@ def main(argv=None):
     print("volume_tdisf launches by group: "
           + json.dumps([[key, shapes, n] for (key, shapes), n in
                         volume_tdisf.by_group.items()]))
-    for fn in (flux_point_qn, solution_point_gradient):
+    for fn in (flux_point_qn, solution_point_gradient, common_flux):
         print(f"{fn.__name__} launches: " + json.dumps(dict(fn.by_variant)))
     print("wall seconds: " + json.dumps(wall_seconds()))
     print(f"total wall time {time.time() - t_start:.1f}s")

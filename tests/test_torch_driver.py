@@ -182,6 +182,7 @@ def test_driver_matches_jax(case, tmp_path, capsys):
     assert "volume_tdisf launches" in outs["port"]
     assert "flux_point_qn launches" in outs["port"]
     assert "solution_point_gradient launches" in outs["port"]
+    assert "common_flux launches" in outs["port"]
     if case == "couette":
         assert "force.dat" in files(tmp_path / "port")
 
