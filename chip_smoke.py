@@ -36,7 +36,7 @@ comparison asks for (``graph=False``):
                x4 shard with its halo faces, and the flat planes of
                `mixed` and `mixed3d`, on synthetic slot tables of the same
                shapes) against its plain version (f32 and f64), timed
-               beside it, its naive thread mapping and its byte bound;
+               beside it and its byte bound;
   4. small   - the port on the card against the port on the CPU (f64, 2
                steps) for `plain` and each feature configuration (4^3 p=3),
                the wall-bounded ones (the channel's small twin, the
@@ -933,8 +933,15 @@ def k1_per_stage(s):
 
 
 def reset_k1():
-    from hifiles_tpu_torch.solver.volume import reset_counters
-    reset_counters()
+    """Every hand kernel's launch counts back to 0."""
+    from hifiles_tpu_torch import tracing
+    tracing.reset(launches_only=True)
+
+
+def launches_of(kernel="volume_tdisf"):
+    """A hand kernel's launch counts since reset_k1 (tracing.record)."""
+    from hifiles_tpu_torch import tracing
+    return tracing.record()["launches"][kernel]
 
 
 def read_k1(counts, name):
@@ -942,11 +949,11 @@ def read_k1(counts, name):
     variant (launches), ``:blocks`` by (variant, U, E) (segments) and
     ``:groups`` by (variant, its segments' shapes) (launches); returns
     (launches, segments)."""
-    from hifiles_tpu_torch.solver.volume import volume_tdisf as f
-    counts[name] = dict(f.by_variant)
-    counts[name + ":blocks"] = dict(f.by_shape)
-    counts[name + ":groups"] = dict(f.by_group)
-    return f.launches, f.segments
+    f = launches_of()
+    counts[name] = f["by_variant"]
+    counts[name + ":blocks"] = f["by_shape"]
+    counts[name + ":groups"] = f["by_group"]
+    return f["launches"], f["segments"]
 
 
 def check_k1(name, got, s, runs):
@@ -1486,14 +1493,13 @@ def check_k3(name, s, runs):
     """Each K3 entry launched at least once per block on every one of
     ``runs`` RK stages of solver ``s`` when it is viscous and not scalar,
     never otherwise."""
-    from hifiles_tpu_torch.solver.ldg_element import (
-        flux_point_qn, solution_point_gradient)
-    fns = (flux_point_qn, solution_point_gradient)
+    fns = [(k, launches_of(k)) for k in ("flux_point_qn",
+                                         "solution_point_gradient")]
     on = bool(s.p.viscous) and s.p.equation == 0
     need = runs * len(s._blocks) if on else 0
-    got = [f.launches for f in fns]
+    got = [f["launches"] for _, f in fns]
     log(f"slice {name} K3 launches: " + ", ".join(
-        f"{f.__name__} {n} {dict(f.by_variant)}" for f, n in zip(fns, got))
+        f"{k} {f['launches']} {f['by_variant']}" for k, f in fns)
         + f" (expected >= {need}" + ("" if on else ", none") + ")")
     if any(n < need for n in got) or (not on and any(got)):
         raise AssertionError(f"K3 on {name}: launches {got}, expected "
@@ -1620,30 +1626,15 @@ def k4_inputs(r, dtype, device, seed=0):
 
 def phase_k4():
     """Each K4 row against its plain version on the card (f32 and f64, at
-    KERNEL_TOL; both thread mappings); in f32 the
-    kernel's time, the naive thread mapping's, the plain version's and
-    the bound: the face planes read once and the flux written once at
-    3.35 TB/s (33 values a point viscous at d = 3, F = 5), the int64
-    slots' 16 B a point besides.  Returns {"k4 [<row>]": record}."""
-    import dataclasses
+    KERNEL_TOL); in f32 the kernel's time, the plain version's and the
+    bound: the face planes read once and the flux written once at 3.35
+    TB/s (33 values a point viscous at d = 3, F = 5), the int64 slots'
+    16 B a point besides.  Returns {"k4 [<row>]": record}."""
     import torch
     from hifiles_tpu_torch.solver.common_flux import (
-        _lib, common_flux, common_flux_ref, launch, variant)
+        common_flux, common_flux_ref, variant)
     from hifiles_tpu_torch.solver.residual import ResidualConfig
     dev = torch.device("cuda", 0)
-    lib = _lib(dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-
-    def naive(*args):
-        """common_flux with the thread a point mapping (the C entry kept
-        for this comparison), outside the wrapper and its counter."""
-        *ops, cfg = args
-        out = torch.empty((ops[0].shape[0], ops[7]), dtype=ops[0].dtype,
-                          device=dev)
-        entry = (lib.hft_common_flux_naive_f32 if out.dtype == torch.float32
-                 else lib.hft_common_flux_naive_f64)
-        launch(entry, *ops, cfg, out, dev.index, stream)
-        return out
     recs = {}
     for r in K4_ROWS:
         cfg = ResidualConfig(equation=0, riemann_solve_type=r["solver"],
@@ -1656,47 +1647,39 @@ def phase_k4():
             want = common_flux_ref(*args, cfg)[:, written]
             scale = want.abs().max().item()
             bound = KERNEL_TOL[str(dtype)[6:]] * max(scale, 1.0)
-            errs = {}
-            for mapping in (common_flux, naive):
-                out = mapping(*args, cfg)
-                torch.cuda.synchronize()
-                errs[mapping is naive] = (out[:, written]
-                                          - want).abs().max().item()
-                del out
+            out = common_flux(*args, cfg)
+            torch.cuda.synchronize()
+            err = (out[:, written] - want).abs().max().item()
+            del out
             name = f"k4 [{r['name']}]"
             rows = u_l.shape[1] if u_l.dim() == 3 else 1
             layout = (f"{tuple(u_l.shape[1:])} planes, n_r "
                       f"{slot_r.numel() // rows}")
             line = (f"kernel {name} ({variant(cfg, r['F'], r['D'])}, "
                     f"{layout}) {str(dtype)[6:]}: max_abs_err "
-                    f"{errs[False]:.3e}, naive {errs[True]:.3e} (bound "
-                    f"{bound:.3e}, scale {scale:.3e})")
+                    f"{err:.3e} (bound {bound:.3e}, scale {scale:.3e})")
             if dtype == torch.float32:
                 elt = u_l.element_size()
                 planes = sum(t.numel() for t in args[:5]) * elt + \
                     r["F"] * written.numel() * elt
                 slots = written.numel() * 8
                 ms = cuda_ms(lambda: common_flux(*args, cfg))
-                naive_ms = cuda_ms(lambda: naive(*args, cfg))
                 plain_ms = cuda_ms(lambda: common_flux_ref(*args, cfg))
                 bound_ms = planes / HBM_BYTES_PER_S * 1e3
                 slots_ms = (planes + slots) / HBM_BYTES_PER_S * 1e3
-                line += (f" kernel {ms:.4f} ms naive {naive_ms:.4f} ms "
-                         f"plain {plain_ms:.4f} ms; moves {planes / 1e6:.3f}"
-                         f" MB of planes (bound {bound_ms:.4f} ms at 3.35 "
-                         f"TB/s, share {bound_ms / ms:.3f}, naive "
-                         f"{bound_ms / naive_ms:.3f}), {slots / 1e6:.3f} MB "
-                         f"of slots besides (with them {slots_ms:.4f} ms, "
+                line += (f" kernel {ms:.4f} ms plain {plain_ms:.4f} ms; "
+                         f"moves {planes / 1e6:.3f} MB of planes (bound "
+                         f"{bound_ms:.4f} ms at 3.35 TB/s, share "
+                         f"{bound_ms / ms:.3f}), {slots / 1e6:.3f} MB of "
+                         f"slots besides (with them {slots_ms:.4f} ms, "
                          f"share {slots_ms / ms:.3f})")
-                recs[name] = dict(max_abs_err=errs[False], ms=ms,
-                                  naive_ms=naive_ms, plain_ms=plain_ms,
+                recs[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                   bound_ms=bound_ms, share=bound_ms / ms,
-                                  naive_share=bound_ms / naive_ms,
                                   bound_with_slots_ms=slots_ms)
             log(line)
-            if not max(errs.values()) <= bound:
+            if not err <= bound:
                 raise AssertionError(f"{name} disagrees with its plain "
-                                     f"version: {errs} > {bound}")
+                                     f"version: {err} > {bound}")
             del args, want, written
     log(json.dumps({"k4 rows": recs}))
     return recs
@@ -1705,10 +1688,10 @@ def phase_k4():
 def check_k4(name, s, runs):
     """K4 launched at least once per residual (block set of a card or
     shard) on every one of ``runs`` RK stages of solver ``s``."""
-    from hifiles_tpu_torch.solver.common_flux import common_flux
     need = runs
-    got = common_flux.launches
-    log(f"slice {name} K4 launches: {got} {dict(common_flux.by_variant)} "
+    f = launches_of("common_flux")
+    got = f["launches"]
+    log(f"slice {name} K4 launches: {got} {f['by_variant']} "
         f"(expected >= {need})")
     if got < need:
         raise AssertionError(f"K4 on {name}: launches {got}, expected >= "
@@ -1800,7 +1783,6 @@ def phase_small(counts):
     import torch
     from hifiles_tpu_torch import periodic_hex_mesh
     from hifiles_tpu_torch.solver.turb_inlet import ReplayDraws
-    from hifiles_tpu_torch.solver.volume import volume_tdisf
     cases = {name: (tgv_input(order=3, config=name, **attrs),
                     periodic_hex_mesh(4, 4, 4))
              for name, attrs in SMALL.items()}
@@ -1820,10 +1802,10 @@ def phase_small(counts):
             draws = numpy_draws(cpu.turb_inlet, 2)
             for s in (gpu, cpu):
                 s.set_inlet_draws(ReplayDraws(draws, s.device, s.dtype))
-        volume_tdisf.by_variant.clear()
+        reset_k1()
         gpu.run(2, dt=p.dt)
         torch.cuda.synchronize()
-        run_counts = dict(volume_tdisf.by_variant)
+        run_counts = launches_of()["by_variant"]
         if not gpu.run_path.endswith("captured"):
             raise AssertionError(f"{name}: run path {gpu.run_path!r}")
         cpu.run(2, dt=p.dt)
@@ -1885,15 +1867,14 @@ def phase_reference(counts):
                                    periodic_tet_mesh)
     from hifiles_tpu_torch.mesh.generate import (periodic_curved_hex20_mesh,
                                                  periodic_curved_prism15_mesh)
-    from hifiles_tpu_torch.solver.volume import volume_tdisf
     p = RunInput.from_deck(os.path.join(DECKS, "input_vortex_parity"))
     s = Solver(p, periodic_quad_mesh(16, 16, -5, 5, -5, 5), device="cuda",
                dtype=torch.float64)
-    volume_tdisf.by_variant.clear()
+    reset_k1()
     t0 = time.perf_counter()
     s.run(p.n_steps, dt=p.dt)
     torch.cuda.synchronize()
-    counts["vortex_reference"] = dict(volume_tdisf.by_variant)
+    counts["vortex_reference"] = launches_of()["by_variant"]
     err = np.sqrt(s.compute_error(2)[0])
     diff = np.abs(err - np.asarray(VORTEX_L2_GOLD))
     log(f"reference vortex 16^2 quads p=3 f64 {p.n_steps} steps "
@@ -2497,7 +2478,6 @@ def phase_sharded_small(counts):
     import numpy as np
     import torch
     from hifiles_tpu_torch.solver.turb_inlet import ReplayDraws
-    from hifiles_tpu_torch.solver.volume import volume_tdisf
     f64 = torch.float64
     for name, (p, mesh, n) in small_sharded().items():
         gpu = make_sharded(p, mesh, n, "cuda:0", f64)
@@ -2510,8 +2490,9 @@ def phase_sharded_small(counts):
         reset_k1()
         gpu.run(2, dt=p.dt)
         torch.cuda.synchronize()
-        run_counts = dict(volume_tdisf.by_variant)
-        k1 = (volume_tdisf.launches, volume_tdisf.segments)
+        vol = launches_of()
+        run_counts = vol["by_variant"]
+        k1 = (vol["launches"], vol["segments"])
         if not gpu.run_path.endswith("captured"):
             raise AssertionError(f"sharded {name}: run path "
                                  f"{gpu.run_path!r}")

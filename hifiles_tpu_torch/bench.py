@@ -46,9 +46,8 @@ import torch
 
 from . import (HEX, PRISM, QUAD, TET, TRI, MixedSolver, RunInput, Solver,
                channel_hex_mesh, channel_prism_tet_mesh, periodic_hex_mesh,
-               periodic_mixed_mesh_2d)
+               periodic_mixed_mesh_2d, tracing)
 from .backend import select_device
-from .solver.volume import reset_counters, volume_tdisf
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DECKS = os.path.join(ROOT, "tests", "decks")
@@ -369,7 +368,7 @@ def run_config(name, device="cuda", repeats=6, steps=STEPS,
     if s.dof != c.dof:
         raise AssertionError(f"{name}: the solver holds {s.dof} DOF, the "
                              f"case {c.dof}")
-    reset_counters()
+    tracing.reset(launches_only=True)
     s.run(steps, dt=c.p.dt)
     r = rates({name: (s, c.p)}, repeats)[name]
     s.run(steps, dt=c.p.dt)
@@ -388,7 +387,8 @@ def run_config(name, device="cuda", repeats=6, steps=STEPS,
     return dict(metric=c.metric, value=r["captured"]["median"],
                 quartiles=r["captured"]["quartiles"],
                 eager=r["eager"]["median"], gated=gated, row=row,
-                launches=dict(volume_tdisf.by_variant))
+                launches=tracing.record()["launches"]["volume_tdisf"][
+                    "by_variant"])
 
 
 def emit(results, names, ref):

@@ -22,8 +22,8 @@
 // the slots in shared memory, and writes them face by face, neighbouring
 // threads on a face's neighbouring slots (the points of one face side are
 // one run of an element's flux-point row).  A thread a point in plane
-// order (``naive``, kept for chip_smoke.py's comparison) writes every value
-// to another face's run instead: 9x slower on the TGV's faces.  Flat
+// order (the naive mapping) writes every value to another face's run
+// instead: 9x slower on the TGV's faces.  Flat
 // planes (a mixed mesh, one row) are already in face order, and take the
 // thread a point mapping.  A normal at one column is read from cache, so
 // it costs no bytes.  512 threads a block (256: 10% slower at the cells'
@@ -76,12 +76,11 @@ template <typename T>
 struct Launch {
   const HftFaceArgs* a;
   FacePrm<T> prm;
-  bool naive;
   cudaStream_t stream;
   template <typename, int D, int F, int SOLVER, bool VISC>
   int run() const {
     const int n = a->n_rows * a->n_cols;
-    if (naive || a->n_rows == 1) {
+    if (a->n_rows == 1) {
       common_flux_naive_kernel<T, D, F, SOLVER, VISC>
           <<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(*a, prm,
                                                                    n);
@@ -98,8 +97,8 @@ struct Launch {
 };
 
 template <typename T>
-int launch(const HftFaceArgs* a, const HftFacePhysics* phys, bool naive,
-           int device, void* stream) {
+int launch(const HftFaceArgs* a, const HftFacePhysics* phys, int device,
+           void* stream) {
   if (hft::face_refused(*a, *phys)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -113,7 +112,7 @@ int launch(const HftFaceArgs* a, const HftFacePhysics* phys, bool naive,
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   return hft::dispatch_face<T>(
-      *phys, Launch<T>{a, hft::face_prm_of<T>(*phys), naive,
+      *phys, Launch<T>{a, hft::face_prm_of<T>(*phys),
                        static_cast<cudaStream_t>(stream)});
 }
 
@@ -125,25 +124,12 @@ extern "C" {
 // Returns cudaGetLastError() after the launch (0 = cudaSuccess).
 int hft_common_flux_f32(const HftFaceArgs* a, const HftFacePhysics* phys,
                         int device, void* stream) {
-  return launch<float>(a, phys, false, device, stream);
+  return launch<float>(a, phys, device, stream);
 }
 
 int hft_common_flux_f64(const HftFaceArgs* a, const HftFacePhysics* phys,
                         int device, void* stream) {
-  return launch<double>(a, phys, false, device, stream);
-}
-
-// The same work with a thread a point in plane order, for the comparison.
-int hft_common_flux_naive_f32(const HftFaceArgs* a,
-                              const HftFacePhysics* phys, int device,
-                              void* stream) {
-  return launch<float>(a, phys, true, device, stream);
-}
-
-int hft_common_flux_naive_f64(const HftFaceArgs* a,
-                              const HftFacePhysics* phys, int device,
-                              void* stream) {
-  return launch<double>(a, phys, true, device, stream);
+  return launch<double>(a, phys, device, stream);
 }
 
 }  // extern "C"

@@ -75,6 +75,22 @@ def wall_seconds() -> dict:
             if name in totals}
 
 
+def launch_lines() -> list:
+    """The hand kernels' launch lines, from the record (tracing): each
+    kernel's launches by variant, and for a kernel of segments (the volume
+    kernel) its segments by shape and its launches by group."""
+    lines = []
+    for name, c in tracing.record()["launches"].items():
+        lines.append(f"{name} launches: " + json.dumps(c["by_variant"]))
+        if "by_shape" in c:
+            lines.append(f"{name} segments by shape: " + json.dumps(
+                [[*k, n] for k, n in c["by_shape"].items()]))
+            lines.append(f"{name} launches by group: " + json.dumps(
+                [[key, shapes, n]
+                 for (key, shapes), n in c["by_group"].items()]))
+    return lines
+
+
 def _option(argv, name, default):
     """The value after ``name`` in argv, or ``default``."""
     return argv[argv.index(name) + 1] if name in argv else default
@@ -98,9 +114,6 @@ def main(argv=None):
     from .io.history import HistoryWriter
     from .io.restart import read_restart, restart_filename, write_restart
     from .io.vtu import write_vtu
-    from .solver.common_flux import common_flux
-    from .solver.ldg_element import flux_point_qn, solution_point_gradient
-    from .solver.volume import volume_tdisf
 
     argv = argv if argv is not None else sys.argv[1:]
     if not argv:
@@ -309,15 +322,8 @@ def main(argv=None):
         with open(os.path.join(outdir, "error.dat"), "a") as f:
             f.write(" ".join(f"{e:.10e}" for e in row) + "\n")
 
-    print("volume_tdisf launches: "
-          + json.dumps(dict(volume_tdisf.by_variant)))
-    print("volume_tdisf segments by shape: "
-          + json.dumps([[*k, n] for k, n in volume_tdisf.by_shape.items()]))
-    print("volume_tdisf launches by group: "
-          + json.dumps([[key, shapes, n] for (key, shapes), n in
-                        volume_tdisf.by_group.items()]))
-    for fn in (flux_point_qn, solution_point_gradient, common_flux):
-        print(f"{fn.__name__} launches: " + json.dumps(dict(fn.by_variant)))
+    for line in launch_lines():
+        print(line)
     print("wall seconds: " + json.dumps(wall_seconds()))
     print(f"total wall time {time.time() - t_start:.1f}s")
     return 0

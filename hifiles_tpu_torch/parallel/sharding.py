@@ -3,19 +3,16 @@
 Port of hifiles_tpu/parallel/sharding.py.  The host part is numpy and
 copied: the partitions (``_contiguous_partition`` :74-81,
 ``_spectral_partition`` :84-136, ``graph_partition`` :139-204 with the
-port's native.partition_native, ``_refine_partition`` :207-267) and the
-padded per-shard tables ``ShardTables`` / ``build_shard_tables`` (:45-71,
-:270-430), kept to be held to the JAX tables: ShardedSolver cuts its
-shards' flat slot tables (soa_sharding.ShardSoaTables) from the same face
-lists, soa_sharding.shard_faces, without the padded layout.
+port's native.partition_native, ``_refine_partition`` :207-267).
+ShardedSolver cuts its shards' flat slot tables
+(soa_sharding.ShardSoaTables) from the face lists of
+soa_sharding.shard_faces, without the JAX package's padded layout.
 ``ShardedSolver`` is the counterpart of :433-761 and :992-1408 on one
 controller (soa_sharding.ShardedLoop); the slot residual (:763-990) has no
 counterpart.
 """
 
 from __future__ import annotations
-
-import dataclasses
 
 import numpy as np
 import torch
@@ -27,35 +24,6 @@ from ..solver.residual_soa import block_wm_index
 from ..solver.solver import Solver, cfl_dt
 from .soa_sharding import ShardSoaTables, ShardedLoop, ShardState, \
     shard_block, shard_faces
-
-
-@dataclasses.dataclass
-class ShardTables:
-    """Per-shard connectivity tables, stacked over the leading shard axis.
-
-    fn layout per shard: [interior | boundary | halo] faces, each padded to
-    the max count over shards; slot_src indexes into that concatenation.
-    Padding faces are never referenced by slot_src, so they need no masks.
-    """
-    int_slot_l: np.ndarray    # (n, Fi_max, nfp)
-    int_slot_r: np.ndarray
-    bdy_slot: np.ndarray      # (n, Fb_max, nfp)
-    bdy_bcid: np.ndarray      # (n, Fb_max) group id; 0 on padding rows
-    bdy_mask: np.ndarray      # (n, Fb_max) 1 = real boundary face
-    bdy_face: np.ndarray      # (n, Fb_max) original boundary-face index
-    halo_slot_l: np.ndarray   # (n, Fh_max, nfp) local left slots
-    halo_recv_idx: np.ndarray  # (n, Fh_max, nfp) index into concat recv bufs
-    send_idx: dict            # offset -> (n, n_send_max) local slot ids
-    slot_src: np.ndarray      # (n, S_loc)
-    slot_sign: np.ndarray     # (n, S_loc)
-    n_int: int
-    n_bdy: int
-    n_halo: int
-    # per-shard REAL face counts (rows beyond them are padding)
-    n_int_s: np.ndarray = None    # (n,)
-    n_bdy_s: np.ndarray = None
-    # per-shard halo faces in receive order: (local slots row, offset)
-    halo_faces_s: list = None
 
 
 def _contiguous_partition(n_eles: int, n_shards: int) -> np.ndarray:
@@ -253,124 +221,6 @@ def _shard_sides(shard_of, loc_of, Pf, n_fpts_per_face):
         return (e_old * Pf + fpt_off[locf]
                 + np.arange(int(n_fpts_per_face[locf])))
     return side, gslots
-
-
-def build_shard_tables(conn, shard_of: np.ndarray, n_shards: int, Pf: int,
-                       n_fpts_per_face: np.ndarray, order: int,
-                       loc_of: np.ndarray, El: int,
-                       pos_fpts: np.ndarray | None = None) -> ShardTables:
-    """Halo-aware per-shard slot tables in the JAX package's padded layout.
-
-    ``shard_of``/``loc_of``: per-element shard id and local index within
-    the shard; ``El`` is the (max, padded) per-shard block size.  Local
-    indices in [sizes[s], El) are padding clones with no faces: their
-    slots get slot_sign 0.  Faces of different shapes have different fpt
-    counts; rows are padded to nfp_max with slot 0."""
-    sizes = np.bincount(shard_of, minlength=n_shards)
-    nfp = int(np.max(n_fpts_per_face))      # row width (padded)
-    side, gslots = _shard_sides(shard_of, loc_of, Pf, n_fpts_per_face)
-    ints, bdys, halos = shard_faces(
-        conn, n_shards, side, pos_fpts.reshape(-1, pos_fpts.shape[-1]),
-        gslots)
-
-    Fi = max(len(x) for x in ints) if any(ints) else 0
-    Fb = max(len(x) for x in bdys) if any(bdys) else 0
-    Fh = max(len(x) for x in halos) if any(halos) else 0
-    offsets = sorted({o for h in halos for (_, o, _) in h})
-
-    S_loc = El * Pf
-    int_l = np.zeros((n_shards, Fi, nfp), dtype=np.int64)
-    int_r = np.zeros((n_shards, Fi, nfp), dtype=np.int64)
-    bdy = np.zeros((n_shards, Fb, nfp), dtype=np.int64)
-    bdy_bcid = np.zeros((n_shards, Fb), dtype=np.int64)
-    bdy_mask = np.zeros((n_shards, Fb))
-    bdy_face = np.zeros((n_shards, Fb), dtype=np.int64)
-    halo_l = np.zeros((n_shards, Fh, nfp), dtype=np.int64)
-    halo_recv = np.zeros((n_shards, Fh, nfp), dtype=np.int64)
-    slot_src = -np.ones((n_shards, S_loc), dtype=np.int64)
-    slot_sign = np.zeros((n_shards, S_loc))
-
-    # sends: for offset o, shard t sends to shard (t+o)%n the partner data
-    # the receiver's halo faces (at offset o) reference, in receiver order
-    send_lists = {o: [[] for _ in range(n_shards)] for o in offsets}
-    halo_sorted = []
-    for s in range(n_shards):
-        by_off = {o: [] for o in offsets}
-        for (sl, o, partner) in halos[s]:
-            by_off[o].append((sl, partner))
-        halo_sorted.append(by_off)
-
-    # send counts must be uniform per offset (static shapes): maxima
-    n_send_max = {o: max((sum(len(x[1]) for x in halo_sorted[s][o])
-                          for s in range(n_shards)), default=0)
-                  for o in offsets}
-
-    for s in range(n_shards):
-        for k, (sl, sr) in enumerate(ints[s]):
-            m = sl.size
-            int_l[s, k, :m] = sl
-            int_r[s, k, :m] = sr
-            base = k * nfp + np.arange(m)
-            slot_src[s, sl] = base
-            slot_sign[s, sl] = 1.0
-            slot_src[s, sr] = base
-            slot_sign[s, sr] = -1.0
-        for k, (sl, bid, fidx) in enumerate(bdys[s]):
-            m = sl.size
-            bdy[s, k, :m] = sl
-            bdy_bcid[s, k] = bid
-            bdy_mask[s, k] = 1.0
-            bdy_face[s, k] = fidx
-            base = (Fi + k) * nfp + np.arange(m)
-            slot_src[s, sl] = base
-            slot_sign[s, sl] = 1.0
-        # halo: receiver side; sender (s-o)%n appends its partner slots
-        k = 0
-        pos_in_offset = {}
-        cum = 0
-        for o in offsets:
-            pos_in_offset[o] = cum
-            cum += n_send_max[o]
-        recv_cursor = {o: 0 for o in offsets}
-        for o in offsets:
-            t = (s - o) % n_shards
-            for (sl, partner) in halo_sorted[s][o]:
-                m = sl.size
-                halo_l[s, k, :m] = sl
-                halo_recv[s, k, :m] = (pos_in_offset[o] + recv_cursor[o]
-                                       + np.arange(m))
-                recv_cursor[o] += m
-                send_lists[o][t].extend(partner.tolist())
-                base = (Fi + Fb + k) * nfp + np.arange(m)
-                slot_src[s, sl] = base
-                slot_sign[s, sl] = 1.0
-                k += 1
-
-    # padding-clone slots have no faces: entry 0 with sign 0
-    for s in range(n_shards):
-        pad_lo = int(sizes[s]) * Pf
-        pad = slot_src[s, pad_lo:]
-        if np.any(slot_src[s, :pad_lo] < 0):
-            raise AssertionError("uncovered slots in sharded tables")
-        slot_src[s, pad_lo:] = np.where(pad < 0, 0, pad)
-
-    send_idx = {}
-    for o in offsets:
-        arr = np.zeros((n_shards, n_send_max[o]), dtype=np.int64)
-        for t in range(n_shards):
-            lst = send_lists[o][t]
-            arr[t, :len(lst)] = lst
-        send_idx[o] = arr
-
-    return ShardTables(int_slot_l=int_l, int_slot_r=int_r, bdy_slot=bdy,
-                       bdy_bcid=bdy_bcid, bdy_mask=bdy_mask,
-                       bdy_face=bdy_face,
-                       halo_slot_l=halo_l, halo_recv_idx=halo_recv,
-                       send_idx=send_idx, slot_src=slot_src,
-                       slot_sign=slot_sign, n_int=Fi, n_bdy=Fb, n_halo=Fh,
-                       n_int_s=np.array([len(x) for x in ints]),
-                       n_bdy_s=np.array([len(x) for x in bdys]),
-                       halo_faces_s=halos)
 
 
 def _unsupported(p, mesh) -> list:

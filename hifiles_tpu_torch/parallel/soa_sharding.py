@@ -38,8 +38,7 @@ from ..solver.residual_soa import (BlockStages, FaceArrays, Physics,
                                    check_coverage, make_face_residual,
                                    orient_faces)
 from ..solver.solver import BlockLoop
-from ..solver.volume import (VolumeRequest, captured_launches, count_replay,
-                             volume_tdisf_groups)
+from ..solver.volume import VolumeRequest, volume_tdisf_groups
 from .cards import CardStep
 
 
@@ -421,8 +420,11 @@ class ShardedLoop(BlockLoop):
         mass-flux memory; and its body-force column and unit columns.
         Every card advances its copies as the controller advances its own,
         with the same arithmetic on the same values, so that no scalar
-        crosses a card inside the step."""
+        crosses a card inside the step.  Nothing with every shard on one
+        card."""
         n = len(self._cards)
+        if n == 1:
+            return
         if self._reps is None:
             zero = lambda x, k: torch.zeros_like(x, device=self._cards[k])
             bufs = dict(dt=self._dt_s, k=self._k, t_sim=self._t_sim,
@@ -527,49 +529,19 @@ class ShardedLoop(BlockLoop):
                 coef[k] = (t_rel <= dt, (t_rel - dt) / t_rel, dt / t_rel)
             self._average_block(u, avg, lambda: coef[k])
 
-    def _make_run_chunk(self):
-        """BlockLoop's chunk with every shard on one card; with shards on
-        several, ``chunk(n_steps)``: one warm-up step, then the step
-        captured per card (CardStep) and replayed, the cards' copies of
-        the step's scalars refreshed first.  None on the CPU."""
+    def _graph_maker(self):
+        """BlockLoop's with every shard on one card; with shards on
+        several, the step captured per card (CardStep) through
+        ``_card_backend`` (graph.CudaCards on the card; None on the
+        CPU)."""
         if len(self._cards) == 1:
-            return super()._make_run_chunk()
+            return super()._graph_maker()
         backend = self._card_backend
         if backend is None:
             if self.device.type != "cuda":
                 return None
             backend = self._card_backend = CudaCards(self._cards)
-        draws = None if self._ti_state is None else self._ti_state[2]
-        key = (self._dt_kind, draws)
-        if self._graph is not None and self._graph_key != key:
-            self.release_graph()
-
-        def chunk(n_steps):
-            left = n_steps
-            self._card_replicas()
-            if self._graph is None and left > 0:
-                with tracing.span("run.warm_up"):
-                    gen = getattr(draws, "gen", None)
-                    g = CardStep(backend, self, len(self._cards),
-                                 [] if gen is None else [gen])
-                    self._stage_draws()
-                    g.warm_up(self._step_body)
-                left -= 1
-                with tracing.span("run.capture") as self._capture_span:
-                    self._graph_launches = captured_launches(
-                        lambda: g.capture(self._step_body))
-                self._graph, self._graph_key = g, key
-                self.captures += 1
-                # a stand-in's capture runs the program and returns the
-                # state; the copies follow it
-                self._card_replicas()
-            with tracing.span("run.replays"):
-                for _ in range(left):
-                    self._stage_draws()
-                    self._graph.replay(self._step_body)
-                    count_replay(self._graph_launches)
-            self.replays += left
-        return chunk
+        return lambda gens: CardStep(backend, self, len(self._cards), gens)
 
     # ------------------------------------------------------------------
     def _split(self, arrays):

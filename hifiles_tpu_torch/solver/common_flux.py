@@ -30,8 +30,8 @@ import ctypes
 
 import torch
 
+from .. import backend, tracing
 from .residual import ResidualConfig
-from .volume import _library, count_with
 
 
 class _FaceArgs(ctypes.Structure):
@@ -52,34 +52,12 @@ class _FacePhysics(ctypes.Structure):
         + [("wave_speed", ctypes.c_double * 3)])
 
 
-ENTRIES = ("common_flux", "common_flux_naive")
-
-
-def bind_entries(lib):
-    """Set the argument types of K4's C entries (the CUDA library's, or a
-    host build of the same interface) and return the library."""
-    for name in ENTRIES:
-        for dt in ("f32", "f64"):
-            fn = getattr(lib, f"hft_{name}_{dt}")
-            # (args, physics, device, stream)
-            fn.argtypes = [ctypes.POINTER(_FaceArgs),
-                           ctypes.POINTER(_FacePhysics), ctypes.c_int,
-                           ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-    return lib
-
-
-_bound = False
-
-
-def _lib(device):
-    """The kernel library (volume._library), K4's entries bound."""
-    global _bound
-    lib = _library(device)
-    if not _bound:
-        bind_entries(lib)
-        _bound = True
-    return lib
+backend.declare(**{
+    # (args, physics, device, stream)
+    f"hft_common_flux_{dt}": [ctypes.POINTER(_FaceArgs),
+                              ctypes.POINTER(_FacePhysics), ctypes.c_int,
+                              ctypes.c_void_p] for dt in ("f32", "f64")})
+tracing.kernel("common_flux", 4)
 
 
 SOLVERS = {0: "rusanov", 2: "roem", 3: "hllc"}
@@ -200,7 +178,8 @@ def physics_of(cfg: ResidualConfig, d, F) -> _FacePhysics:
 def launch(entry, u_l, u_r, qn_l, qn_r, norm, slot_l, slot_r, n_slots,
            cfg: ResidualConfig, out, device_index, stream):
     """One launch of ``entry`` (a C entry of K4's interface) on checked
-    operands, writing ``out`` (F, n_slots); raises on an error code."""
+    operands, writing ``out`` (F, n_slots), counted by variant's name
+    (backend.call)."""
     F, R, C = u_l.shape[0], _rows(u_l), u_l.shape[-1]
     d = norm.shape[0]
     ptr = lambda t: None if t is None else t.data_ptr()
@@ -212,9 +191,8 @@ def launch(entry, u_l, u_r, qn_l, qn_r, norm, slot_l, slot_r, n_slots,
         n_cols=C, n_r=slot_r.numel() // max(R, 1),
         norm_cols=norm.shape[-1], n_slots=n_slots)
     phys = physics_of(cfg, d, F)
-    rc = entry(ctypes.byref(a), ctypes.byref(phys), device_index, stream)
-    if rc != 0:
-        raise RuntimeError(f"K4 kernel launch failed: CUDA error {rc}")
+    backend.call("common_flux", variant(cfg, F, d), entry, ctypes.byref(a),
+                 ctypes.byref(phys), device_index, stream)
 
 
 def common_flux(u_l, u_r, qn_l, qn_r, norm, slot_l, slot_r, n_slots,
@@ -224,12 +202,8 @@ def common_flux(u_l, u_r, qn_l, qn_r, norm, slot_l, slot_r, n_slots,
     columns), the other slots unset.  ``cfg`` gives the equation, the
     Riemann solver, gamma and the LDG parameters; qn_l and qn_r are read
     when cfg.viscous.  The kernel for CUDA tensors, the plain version for
-    CPU tensors.
-
-    The counters sit on the function: ``launches``, and ``by_variant`` by
-    variant's name; a launch recorded into a CUDA graph counts once per
-    replay (volume.captured_launches, count_replay)."""
-    d, F, _, _, _ = check(u_l, u_r, qn_l, qn_r, norm, slot_l, slot_r,
+    CPU tensors."""
+    _, F, _, _, _ = check(u_l, u_r, qn_l, qn_r, norm, slot_l, slot_r,
                           n_slots, cfg)
     dev = u_l.device
     if dev.type == "cpu":
@@ -237,19 +211,7 @@ def common_flux(u_l, u_r, qn_l, qn_r, norm, slot_l, slot_r, n_slots,
                                n_slots, cfg)
     if dev.type != "cuda":
         raise ValueError(f"common_flux: unsupported device {dev}")
-    lib = _lib(dev)
     out = torch.empty((F, n_slots), dtype=u_l.dtype, device=dev)
-    entry = (lib.hft_common_flux_f32 if u_l.dtype == torch.float32
-             else lib.hft_common_flux_f64)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    # the library's own CUDA runtime selects ``dev`` for the launch, which
-    # makes it the thread's current card; the guard restores PyTorch's
-    with torch.cuda.device(dev):
-        launch(entry, u_l, u_r, qn_l, qn_r, norm, slot_l, slot_r, n_slots,
-               cfg, out, dev.index, stream)
-    common_flux.launches += 1
-    common_flux.by_variant[variant(cfg, F, d)] += 1
+    backend.launch("common_flux", dev, u_l.dtype, launch, u_l, u_r, qn_l,
+                   qn_r, norm, slot_l, slot_r, n_slots, cfg, out)
     return out
-
-
-count_with(common_flux)

@@ -22,6 +22,7 @@ import dataclasses
 from typing import Any
 
 import numpy as np
+from scipy.spatial import cKDTree
 
 from .. import HEX, PRISM, QUAD, TET, TRI
 from ..mesh.core import FaceConnectivity, MeshData
@@ -197,22 +198,11 @@ class ElementBlock:
             return
 
         def min_dist(pts):
+            # exact nearest neighbours through KD-trees, one per cluster
+            # (wall_clusters)
             flat = pts.reshape(-1, pts.shape[-1])
-            try:
-                # exact nearest-neighbor via KD-trees, one per cluster
-                # (wall_clusters): the brute scan's (chunk, n_wall, d)
-                # broadcast temp is O(N*M) memory traffic and took ~45 min
-                # on a 33k-cell wall-modeled channel
-                from scipy.spatial import cKDTree
-                out = np.min([cKDTree(c).query(flat, workers=-1)[0]
-                              for c in wall_clusters(wall_pts)], axis=0)
-            except ImportError:            # pragma: no cover
-                out = np.empty(flat.shape[0])
-                chunk = 4096
-                for i in range(0, flat.shape[0], chunk):
-                    d2 = np.sum((flat[i:i + chunk, None, :]
-                                 - wall_pts[None, :, :]) ** 2, axis=-1)
-                    out[i:i + chunk] = np.sqrt(d2.min(axis=1))
+            out = np.min([cKDTree(c).query(flat, workers=-1)[0]
+                          for c in wall_clusters(wall_pts)], axis=0)
             return out.reshape(pts.shape[:-1])
 
         self.wall_dist_upts = min_dist(self.pos_upts)

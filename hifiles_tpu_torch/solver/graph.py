@@ -36,7 +36,13 @@ import gc
 
 import torch
 
-from ..backend import kernel_library
+from .. import backend
+
+backend.declare(hft_peer_enable=[ctypes.c_int, ctypes.c_int],
+                hft_peer_copy=[ctypes.c_void_p, ctypes.c_int,
+                               ctypes.c_void_p, ctypes.c_size_t,
+                               ctypes.c_void_p])
+backend.declare(ctypes.c_longlong, hft_graph_nodes=[ctypes.c_void_p])
 
 
 @contextlib.contextmanager
@@ -57,9 +63,10 @@ class CudaStepGraph:
     the ``generators`` registered with the graph.  ``warm_up(body)`` runs
     the step eagerly on the capture stream (its first launches load the
     kernels' modules and cuBLAS's workspace for that stream);
-    ``capture(body)`` records it; ``replay()`` launches it on the current
-    stream; ``count_nodes()``, inside a capture, reads the graph's node
-    count so far."""
+    ``capture(body)`` records it; ``replay(body)`` launches it on the
+    current stream (``body`` is not run: a replay makes no host call);
+    ``count_nodes()``, inside a capture, reads the graph's node count so
+    far."""
 
     def __init__(self, device, generators=()):
         self.device = torch.device(device)
@@ -70,10 +77,8 @@ class CudaStepGraph:
 
     def count_nodes(self):
         """The node count of the graph the capture stream records."""
-        fn = kernel_library().hft_graph_nodes
-        fn.argtypes = [ctypes.c_void_p]
-        fn.restype = ctypes.c_longlong
-        n = fn(self.stream.cuda_stream)
+        lib = backend.kernel_library()
+        n = lib.hft_graph_nodes(self.stream.cuda_stream)
         if n < 0:
             raise RuntimeError(f"hft_graph_nodes: {n} (the stream is not "
                                "capturing, or a CUDA error)")
@@ -96,7 +101,7 @@ class CudaStepGraph:
             finally:
                 torch.cuda.set_sync_debug_mode(mode)
 
-    def replay(self):
+    def replay(self, body=None):
         self.graph.replay()
 
     def release(self):
@@ -112,9 +117,7 @@ def enable_peers(devices):
     runtime: the cards' primary contexts, which PyTorch uses too) and print
     the access matrix; raises where a pair has none, since a copy between
     them would be staged through the host."""
-    lib = kernel_library()
-    lib.hft_peer_enable.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.hft_peer_enable.restype = ctypes.c_int
+    lib = backend.kernel_library()
     idx = [torch.device(d).index for d in devices]
     todo = [(a, b) for a in idx for b in idx
             if a != b and (a, b) not in _PEERS]
@@ -147,19 +150,15 @@ class CudaCards:
     rerun = None
 
     def __init__(self, devices):
-        from .volume import _library
         self.devices = [torch.device(d) for d in devices]
         enable_peers(self.devices)
         for dev in self.devices:
-            _library(dev)    # hft_volume_prepare, before any capture
+            # hft_volume_prepare, before any capture
+            backend.card_library(dev)
         self.streams = [torch.cuda.Stream(d) for d in self.devices]
         self.pools = [torch.cuda.graph_pool_handle() for _ in self.devices]
         self._saved = None
-        self._copy = kernel_library().hft_peer_copy
-        self._copy.argtypes = [ctypes.c_void_p, ctypes.c_int,
-                               ctypes.c_void_p, ctypes.c_size_t,
-                               ctypes.c_void_p]
-        self._copy.restype = ctypes.c_int
+        self._copy = backend.kernel_library().hft_peer_copy
 
     def current(self, k):
         return torch.cuda.current_stream(self.devices[k])

@@ -32,9 +32,10 @@ import ctypes
 
 import torch
 
+from .. import backend, tracing
 from .volume import (SGS_NONE, SGS_SMAGORINSKY, VolumeParams, _Args,
-                     _library, args_of, count_with, sgs_flux_p, sgs_kwargs,
-                     variant, visc_flux_p, visc_kwargs)
+                     args_of, sgs_flux_p, sgs_kwargs, variant, visc_flux_p,
+                     visc_kwargs)
 
 
 class _FptsArgs(ctypes.Structure):
@@ -54,33 +55,17 @@ class _UptsArgs(ctypes.Structure):
             "inv_det_stride")]
 
 
-def bind_entries(lib):
-    """Set the argument types of K3's C entries (the CUDA library's, or a
-    host build of the same interface) and return the library."""
-    for dt in ("f32", "f64"):
-        fn = getattr(lib, f"hft_ldg_fpts_{dt}")
-        # (args, physics, device, stream)
-        fn.argtypes = [ctypes.POINTER(_FptsArgs), ctypes.POINTER(_Args),
-                       ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        fn = getattr(lib, f"hft_ldg_upts_{dt}")
-        fn.argtypes = [ctypes.POINTER(_UptsArgs), ctypes.c_int,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
-
-
-_bound = False
-
-
-def _lib(device):
-    """The kernel library (volume._library), K3's entries bound."""
-    global _bound
-    lib = _library(device)
-    if not _bound:
-        bind_entries(lib)
-        _bound = True
-    return lib
+backend.declare(**{f"hft_ldg_{at}_{dt}": args for dt in ("f32", "f64")
+                   for at, args in (
+                       # (args, physics, device, stream)
+                       ("fpts", [ctypes.POINTER(_FptsArgs),
+                                 ctypes.POINTER(_Args), ctypes.c_int,
+                                 ctypes.c_void_p]),
+                       # (args, device, stream)
+                       ("upts", [ctypes.POINTER(_UptsArgs), ctypes.c_int,
+                                 ctypes.c_void_p]))})
+tracing.kernel("flux_point_qn", 3)
+tracing.kernel("solution_point_gradient", 3)
 
 
 # ----------------------------------------------------------------------
@@ -147,17 +132,6 @@ def _stride(t, E):
     return int(t.shape[-2] == E and E > 1)
 
 
-def _run(entry, *args):
-    rc = entry(*args)
-    if rc != 0:
-        raise RuntimeError(f"K3 kernel launch failed: CUDA error {rc}")
-
-
-def _count(fn, key):
-    fn.launches += 1
-    fn.by_variant[key] += 1
-
-
 def check_fpts(tgf, u_f, jg, inv_det, norm, prm: VolumeParams, delta=None,
                wdist=None, extra=None):
     """flux_point_qn's operands checked: shapes, one device and dtype,
@@ -191,8 +165,8 @@ def check_fpts(tgf, u_f, jg, inv_det, norm, prm: VolumeParams, delta=None,
 def launch_fpts(entry, tgf, u_f, jg, inv_det, norm, prm: VolumeParams,
                 delta, wdist, extra, qn, grad, device_index, stream):
     """One launch of ``entry`` (a flux-point C entry of K3's interface) on
-    checked operands, writing ``qn`` and ``grad`` (None: not written);
-    raises on an error code.  Delta is passed with an SGS model, wdist
+    checked operands, writing ``qn`` and ``grad`` (None: not written),
+    counted (backend.call).  Delta is passed with an SGS model, wdist
     with Smagorinsky's (WALE's reads none)."""
     d, F = jg.shape[0], u_f.shape[0]
     _, E, Pf = u_f.shape
@@ -208,7 +182,9 @@ def launch_fpts(entry, tgf, u_f, jg, inv_det, norm, prm: VolumeParams,
         delta_stride=_stride(delta, E) if sgs else 0,
         wdist_stride=_stride(wdist, E) if sgs else 0)
     args = args_of(prm, F, d, extra is not None)
-    _run(entry, ctypes.byref(a), ctypes.byref(args), device_index, stream)
+    backend.call("flux_point_qn", variant(prm, F, extra is not None, d),
+                 entry, ctypes.byref(a), ctypes.byref(args), device_index,
+                 stream)
 
 
 def flux_point_qn(tgf, u_f, jg, inv_det, norm, prm: VolumeParams,
@@ -217,31 +193,19 @@ def flux_point_qn(tgf, u_f, jg, inv_det, norm, prm: VolumeParams,
     gradient (d, F, E, Pf) when ``with_grad``, else None).  ``prm`` is the
     viscous physics with the inviscid part off (Physics.prm_visc); delta
     and wdist are read with an SGS model, ``extra`` is the added flux.
-    The kernel for CUDA tensors, the plain version for CPU tensors.
-
-    The counters sit on the function: ``launches``, and ``by_variant``
-    by volume.variant's name; a launch recorded into a CUDA graph counts
-    once per replay (volume.captured_launches, count_replay)."""
-    d, F, _, _ = check_fpts(tgf, u_f, jg, inv_det, norm, prm, delta, wdist,
-                            extra)
+    The kernel for CUDA tensors, the plain version for CPU tensors; each
+    launch is counted by volume.variant's name (tracing.launch)."""
+    check_fpts(tgf, u_f, jg, inv_det, norm, prm, delta, wdist, extra)
     dev = u_f.device
     if dev.type == "cpu":
         return flux_point_qn_ref(tgf, u_f, jg, inv_det, norm, prm, delta,
                                  wdist, extra, with_grad)
     if dev.type != "cuda":
         raise ValueError(f"flux_point_qn: unsupported device {dev}")
-    lib = _lib(dev)
     qn = torch.empty_like(u_f)
     grad = torch.empty_like(tgf) if with_grad else None
-    entry = (lib.hft_ldg_fpts_f32 if u_f.dtype == torch.float32
-             else lib.hft_ldg_fpts_f64)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    # the library's own CUDA runtime selects ``dev`` for the launch, which
-    # makes it the thread's current card; the guard restores PyTorch's
-    with torch.cuda.device(dev):
-        launch_fpts(entry, tgf, u_f, jg, inv_det, norm, prm, delta, wdist,
-                    extra, qn, grad, dev.index, stream)
-    _count(flux_point_qn, variant(prm, F, extra is not None, d))
+    backend.launch("ldg_fpts", dev, u_f.dtype, launch_fpts, tgf, u_f, jg,
+                   inv_det, norm, prm, delta, wdist, extra, qn, grad)
     return qn, grad
 
 
@@ -260,39 +224,31 @@ def check_upts(tg, jg, inv_det):
 
 def launch_upts(entry, tg, jg, inv_det, grad, device_index, stream):
     """One launch of ``entry`` (a solution-point C entry of K3's
-    interface) on checked operands, writing ``grad``; raises on an error
-    code."""
+    interface) on checked operands, writing ``grad``, counted by
+    "D<d>F<F>" (backend.call)."""
     d, U, F, E = tg.shape
     col = lambda t: int(t.shape[-1] == E and E > 1)
     a = _UptsArgs(tg=tg.data_ptr(), jg=jg.data_ptr(),
                   inv_det=inv_det.data_ptr(), grad=grad.data_ptr(), n_dims=d,
                   n_upts=U, n_fields=F, n_eles=E, jg_stride=col(jg),
                   inv_det_stride=col(inv_det))
-    _run(entry, ctypes.byref(a), device_index, stream)
+    backend.call("solution_point_gradient", f"D{d}F{F}", entry,
+                 ctypes.byref(a), device_index, stream)
 
 
 def solution_point_gradient(tg, jg, inv_det):
     """K3 at the solution points of one block: the physical gradient
     (d, U, F, E) from the transformed gradient ``tg`` (d, U, F, E), adj(J)
     ``jg`` (d, d, U, E') and 1/det ``inv_det`` (U, E').  The kernel for
-    CUDA tensors, the plain version for CPU tensors; counters as
-    flux_point_qn's, by "D<d>F<F>"."""
-    d, _, F, _ = check_upts(tg, jg, inv_det)
+    CUDA tensors, the plain version for CPU tensors."""
+    check_upts(tg, jg, inv_det)
     dev = tg.device
     if dev.type == "cpu":
         return solution_point_gradient_ref(tg, jg, inv_det)
     if dev.type != "cuda":
         raise ValueError(f"solution_point_gradient: unsupported device "
                          f"{dev}")
-    lib = _lib(dev)
     grad = torch.empty_like(tg)
-    entry = (lib.hft_ldg_upts_f32 if tg.dtype == torch.float32
-             else lib.hft_ldg_upts_f64)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        launch_upts(entry, tg, jg, inv_det, grad, dev.index, stream)
-    _count(solution_point_gradient, f"D{d}F{F}")
+    backend.launch("ldg_upts", dev, tg.dtype, launch_upts, tg, jg, inv_det,
+                   grad)
     return grad
-
-
-count_with(flux_point_qn, solution_point_gradient)

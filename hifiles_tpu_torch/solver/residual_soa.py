@@ -53,7 +53,7 @@ import os
 import numpy as np
 import torch
 
-from .. import tracing
+from .. import backend, tracing
 from ..models.viscous import adv_diff_viscous_flux
 from ..ops.les_filter import build_les_filter
 
@@ -63,7 +63,7 @@ from .ldg_element import (flux_point_qn, solution_point_gradient,
                           solution_point_gradient_ref)
 from .residual import BlockArrays, ResidualConfig
 from .volume import (SGS_NONE, SGS_SMAGORINSKY, SGS_WALE, VolumeCall,
-                     VolumeParams, VolumeRequest, _library, softplus,
+                     VolumeParams, VolumeRequest, softplus,
                      sutherland_mu_p, volume_tdisf_many)
 
 # the Riemann solver codes of hifiles_tpu/ops/riemann.py (a JAX module)
@@ -606,10 +606,9 @@ class BlockStages:
         self.ph = ph
         dev = torch.device(device)
         if dev.type == "cuda" and dev.index is not None and not ph.scalar:
-            # the volume kernel's library, built by nvcc on a checkout's
-            # first run, loaded with the residual rather than at its first
-            # launch
-            _library(dev)
+            # the kernel library, built by nvcc on a checkout's first run,
+            # loaded with the residual rather than at its first launch
+            backend.card_library(dev)
         B = BlockArrays(block, device, dtype)
         self.S = S = BlockArraysSoa(block, B, device, dtype)
         self.E, self.U, self.Pf = B.n_eles, B.n_upts, B.n_fpts

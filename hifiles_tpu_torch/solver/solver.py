@@ -60,7 +60,6 @@ from .residual import ResidualConfig
 from .residual_soa import make_residual_soa
 from .step import N_STAGES, make_step_fn
 from .turb_inlet import build_turb_inlet
-from .volume import captured_launches, count_replay
 
 
 AVERAGE_FIELDS = ("rho_average", "u_average", "v_average", "w_average",
@@ -638,28 +637,45 @@ class BlockLoop:
                 if self._avg:
                     self._average(dt)
 
+    def _graph_maker(self):
+        """What makes the captured step's graph from its generators: the
+        test's stand-in ``_step_graph`` where one is set, else
+        graph.CudaStepGraph on the card; None where the run is eager (the
+        CPU, or blocks on several devices)."""
+        if self._step_graph is not None:
+            return lambda gens: self._step_graph(self.device, gens)
+        if self.device.type != "cuda" or set(self._devs) != {self.device}:
+            return None
+        return lambda gens: CudaStepGraph(self.device, gens)
+
+    def _card_replicas(self):
+        """Before the replays and after a capture: the cards' copies of
+        the step's scalars refreshed (ShardedLoop's, with shards on
+        several cards); nothing on one card."""
+
     def _make_run_chunk(self):
         """The counterpart of the JAX ``_make_run_chunk`` (solver.py:
         279-482, multiblock.py:724-840): ``chunk(n_steps)`` advances
         n_steps steps as replays of one captured step, or None where the
-        run is eager (the CPU); with shards on several cards, ShardedLoop's.
+        run is eager (the CPU).  The graph comes from ``_graph_maker``: on
+        one card a CUDA graph of the whole step, with shards on several
+        the step captured per card (ShardedLoop).
 
         The first call captures: one warm-up step runs eagerly on the
-        capture stream (it loads the volume kernel's instantiations and
-        cuBLAS's handles and workspace) and counts as the chunk's first
-        step; then the step is captured, which runs nothing, and replayed
-        for the others, with no host sync between replays.  The step is
-        captured anew only when its structure changes: dt's kind (global
-        or per element) or the inlet's draw object.  ``captures`` and
-        ``replays`` count them.  A ReplayDraws inlet
-        stages each step's draws before its replay.  The volume kernel's
-        counters count each replay's launches (volume.count_replay).  The
-        spans run.warm_up, run.capture and run.replays time the three."""
-        make = self._step_graph
+        capture stream (it loads the kernels' instantiations and cuBLAS's
+        handles and workspace) and counts as the chunk's first step; then
+        the step is captured, which runs nothing, and replayed for the
+        others, with no host sync between replays.  The step is captured
+        anew only when its structure changes: dt's kind (global or per
+        element) or the inlet's draw object.  ``captures`` and
+        ``replays`` count them.  A ReplayDraws inlet stages each step's
+        draws before its replay.  The hand kernels' launches held by the
+        capture (tracing.capture) count once per replay
+        (tracing.replay).  The spans run.warm_up, run.capture and
+        run.replays time the three."""
+        make = self._graph_maker()
         if make is None:
-            if self.device.type != "cuda" or set(self._devs) != {self.device}:
-                return None
-            make = CudaStepGraph
+            return None
         draws = None if self._ti_state is None else self._ti_state[2]
         key = (self._dt_kind, draws)
         if self._graph is not None and self._graph_key != key:
@@ -667,23 +683,26 @@ class BlockLoop:
 
         def chunk(n_steps):
             left = n_steps
+            self._card_replicas()
             if self._graph is None and left > 0:
                 with tracing.span("run.warm_up"):
                     gen = getattr(draws, "gen", None)
-                    g = make(self.device, [] if gen is None else [gen])
+                    g = make([] if gen is None else [gen])
                     self._stage_draws()
                     g.warm_up(self._step_body)
                 left -= 1
                 with tracing.span("run.capture") as self._capture_span:
-                    self._graph_launches = captured_launches(
-                        lambda: g.capture(lambda: self._counted_step(g)))
+                    g.capture(lambda: self._counted_step(g))
                 self._graph, self._graph_key = g, key
                 self.captures += 1
+                # a stand-in's capture runs the program and returns the
+                # state; the cards' copies follow it
+                self._card_replicas()
             with tracing.span("run.replays"):
                 for _ in range(left):
                     self._stage_draws()
-                    self._graph.replay()
-                    count_replay(self._graph_launches)
+                    self._graph.replay(self._step_body)
+                    tracing.replay(self._graph_launches)
             self.replays += left
         return chunk
 
@@ -691,9 +710,10 @@ class BlockLoop:
         """The step as the graph ``g`` captures it: inside
         tracing.capture, its parts' nodes counted by ``g.count_nodes``
         where the graph has one (graph.CudaStepGraph; a test's stand-in
-        may)."""
-        with tracing.capture(getattr(g, "count_nodes", None)):
+        may), its launches held for the replays."""
+        with tracing.capture(getattr(g, "count_nodes", None)) as held:
             self._step_body()
+        self._graph_launches = held
 
     def release_graph(self):
         """Drop the captured step and the memory its graph holds; the next

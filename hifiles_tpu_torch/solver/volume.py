@@ -34,7 +34,7 @@ from typing import List, NamedTuple, Optional
 
 import torch
 
-from .. import backend
+from .. import backend, tracing
 
 SGS_NONE, SGS_SMAGORINSKY, SGS_WALE = -1, 0, 1
 
@@ -351,36 +351,12 @@ class _Segment(ctypes.Structure):
             "first_tile", "tiles_per_row", "bulk")]
 
 
-def bind_entries(lib):
-    """Set the argument types of the library's C entries (the CUDA one, or
-    a host build of the same interface) and return it."""
-    for name in ("hft_volume_tdisf_f32", "hft_volume_tdisf_f64"):
-        fn = getattr(lib, name)
-        # (segments, n_segments, args, device, stream)
-        fn.argtypes = [ctypes.POINTER(_Segment), ctypes.c_int,
-                       ctypes.POINTER(_Args), ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
-
-
-_prepared = set()
-
-
-def _library(device):
-    """The kernel library, prepared for ``device`` (its shared-memory
-    limits and occupancy set once, at its first launch there)."""
-    lib = backend.kernel_library()
-    if device.index not in _prepared:
-        bind_entries(lib)
-        lib.hft_volume_prepare.argtypes = [ctypes.c_int]
-        lib.hft_volume_prepare.restype = ctypes.c_int
-        with torch.cuda.device(device):
-            rc = lib.hft_volume_prepare(device.index)
-        if rc != 0:
-            raise RuntimeError(f"volume_tdisf: preparing the kernels on "
-                               f"{device} failed: CUDA error {rc}")
-        _prepared.add(device.index)
-    return lib
+backend.declare(**{
+    # (segments, n_segments, args, device, stream)
+    f"hft_volume_tdisf_{dt}": [ctypes.POINTER(_Segment), ctypes.c_int,
+                               ctypes.POINTER(_Args), ctypes.c_int,
+                               ctypes.c_void_p] for dt in ("f32", "f64")})
+tracing.kernel("volume_tdisf", 1, segments=True)
 
 
 def variant(prm: VolumeParams, n_fields: int, has_extra: bool,
@@ -459,28 +435,19 @@ def segments_of(calls, prm: VolumeParams, outs):
 def launch_segments(entry, calls, prm: VolumeParams, outs, device_index,
                     stream):
     """Launches of ``entry`` (a C entry of the library's interface) over
-    ``calls``, MAX_SEGMENTS at a time, writing ``outs``, each counted on
-    volume_tdisf's counters; raises on an error code.  Returns the calls
-    of each launch."""
+    ``calls``, MAX_SEGMENTS at a time, writing ``outs``, each counted with
+    its segments' shapes (backend.call).  Returns the calls of each
+    launch."""
     c = calls[0]
     args = args_of(prm, c.u.shape[1], c.jg.shape[0], c.extra is not None)
     key = call_variant(c, prm)
-    f = volume_tdisf
     parts = []
     for a in range(0, len(calls), MAX_SEGMENTS):
         part = calls[a:a + MAX_SEGMENTS]
         table = segments_of(part, prm, outs[a:a + MAX_SEGMENTS])
-        rc = entry(table, len(part), ctypes.byref(args), device_index,
-                   stream)
-        if rc != 0:
-            raise RuntimeError(f"volume_tdisf kernel launch failed: CUDA "
-                               f"error {rc}")
-        shapes = [(x.u.shape[0], x.u.shape[2]) for x in part]
-        f.launches += 1
-        f.segments += len(part)
-        f.by_variant[key] += 1
-        f.by_shape.update((key, U, E) for U, E in shapes)
-        f.by_group[(key, tuple(sorted(shapes)))] += 1
+        backend.call("volume_tdisf", key, entry, table, len(part),
+                     ctypes.byref(args), device_index, stream,
+                     shapes=[(x.u.shape[0], x.u.shape[2]) for x in part])
         parts.append(part)
     return parts
 
@@ -495,14 +462,9 @@ def volume_tdisf_many(calls, prm: VolumeParams):
     """The volume stage of several blocks (VolumeCall each) of one variant
     on one device: one kernel launch for up to MAX_SEGMENTS of them, the
     plain version for CPU tensors.  Returns their outputs in order.
-    Raises on calls of different devices, dtypes or variants.
-
-    The counters sit on ``volume_tdisf``: ``launches`` and ``by_variant``
-    count launches, ``segments`` and ``by_shape`` (variant, U, E) the
-    blocks they carried, ``by_group`` (variant, sorted (U, E) of its
-    segments) the launches by their table (CPU calls do not count).  A
-    launch recorded into a CUDA graph counts once per replay of the graph
-    (``captured_launches``, ``count_replay``)."""
+    Raises on calls of different devices, dtypes or variants.  Each
+    launch is counted in the program's record (tracing.launch), by
+    variant and by its segments' (U, E); CPU calls are not launches."""
     calls = [VolumeCall(*c) for c in calls]
     _check_group(calls, prm)
     dev = calls[0].u.device
@@ -510,17 +472,11 @@ def volume_tdisf_many(calls, prm: VolumeParams):
         return volume_tdisf_many_ref(calls, prm)
     if dev.type != "cuda":
         raise ValueError(f"volume_tdisf: unsupported device {dev}")
-    lib = _library(dev)
-    entry = (lib.hft_volume_tdisf_f32 if calls[0].u.dtype == torch.float32
-             else lib.hft_volume_tdisf_f64)
     D = calls[0].jg.shape[0]
     outs = [torch.empty((D,) + tuple(c.u.shape), device=dev,
                         dtype=c.u.dtype) for c in calls]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    # the library's own CUDA runtime selects ``dev`` for the launch, which
-    # makes it the thread's current card; the guard restores PyTorch's
-    with torch.cuda.device(dev):
-        launch_segments(entry, calls, prm, outs, dev.index, stream)
+    backend.launch("volume_tdisf", dev, calls[0].u.dtype, launch_segments,
+                   calls, prm, outs)
     return outs
 
 
@@ -528,8 +484,7 @@ def volume_tdisf(u, grad, jg, prm: VolumeParams, delta=None, wdist=None,
                  extra=None):
     """Volume stage of one block: volume_tdisf_many of one call (the CUDA
     kernel for CUDA tensors, the plain version for CPU tensors; arguments
-    as volume_tdisf_ref).  Holds the kernel's counters (see
-    volume_tdisf_many)."""
+    as volume_tdisf_ref)."""
     return volume_tdisf_many(
         [VolumeCall(u, grad, jg, delta, wdist, extra)], prm)[0]
 
@@ -549,84 +504,3 @@ def volume_tdisf_groups(requests):
         for (r, i, _), t in zip(members, got):
             outs[r][i] = t
     return outs
-
-
-COUNTERS = ("launches", "segments", "by_variant", "by_shape", "by_group")
-# the other hand kernels' wrappers (count_with), each with the counters
-# ``launches`` and ``by_variant``
-OTHER_COUNTED = []
-
-
-def _zero(f):
-    f.launches = 0
-    f.by_variant = collections.Counter()
-
-
-def reset_counters():
-    """Set every counter of the volume kernel and of the OTHER_COUNTED
-    wrappers to 0."""
-    f = volume_tdisf
-    _zero(f)
-    f.segments = 0
-    f.by_shape = collections.Counter()
-    f.by_group = collections.Counter()
-    for g in OTHER_COUNTED:
-        _zero(g)
-
-
-def count_with(*fns):
-    """Give the wrappers ``fns`` of other hand kernels the counters
-    ``launches`` and ``by_variant``, at 0, which reset_counters,
-    captured_launches and count_replay then carry with the volume
-    kernel's."""
-    for g in fns:
-        _zero(g)
-        OTHER_COUNTED.append(g)
-
-
-reset_counters()
-
-
-def _counters():
-    f = volume_tdisf
-    return (f.launches, f.segments, collections.Counter(f.by_variant),
-            collections.Counter(f.by_shape), collections.Counter(f.by_group),
-            [(g.launches, collections.Counter(g.by_variant))
-             for g in OTHER_COUNTED])
-
-
-def captured_launches(capture):
-    """Run ``capture()``, which records a step's launches into a CUDA graph
-    without running them, and return the counters' increase over it
-    (launches, segments, by_variant, by_shape, by_group, and (launches,
-    by_variant) of each OTHER_COUNTED wrapper): the launches of one
-    replay.  The counters go back to what they were, since nothing ran."""
-    f = volume_tdisf
-    before = _counters()
-    capture()
-    now = _counters()
-    delta = (now[0] - before[0], now[1] - before[1]) + tuple(
-        b - a for a, b in zip(before[2:5], now[2:5])) + (
-        [(b[0] - a[0], b[1] - a[1]) for a, b in zip(before[5], now[5])],)
-    f.launches, f.segments = before[:2]
-    for name, was in zip(COUNTERS[2:], before[2:5]):
-        getattr(f, name).clear()
-        getattr(f, name).update(was)
-    for g, (n, was) in zip(OTHER_COUNTED, before[5]):
-        g.launches = n
-        g.by_variant.clear()
-        g.by_variant.update(was)
-    return delta
-
-
-def count_replay(delta):
-    """Add one replay's launches ``delta`` (captured_launches) to the
-    counters: the replay launched them, though no host call did."""
-    f = volume_tdisf
-    f.launches += delta[0]
-    f.segments += delta[1]
-    for name, d in zip(COUNTERS[2:], delta[2:5]):
-        getattr(f, name).update(d)
-    for g, (n, by) in zip(OTHER_COUNTED, delta[5]):
-        g.launches += n
-        g.by_variant.update(by)

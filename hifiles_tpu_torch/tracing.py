@@ -33,12 +33,19 @@ residual's stage generator.
 
 The program's counters sit in the record too (``counters``:
 ``captured_nodes``; ``boundary_faces``, the boundary faces of the step's
-face stage, set by ``counter`` at set-up).  The volume kernel's launch
-counters stay on ``solver.volume.volume_tdisf``, and the captures and
-replays of a run on the solver (``captures``, ``replays``).
+face stage, set by ``counter`` at set-up), and so do the launches of the
+hand kernels (``launches``).  A kernel module registers each of its
+kernels (``kernel``); every launch of one (backend.call, the one place
+that calls a kernel's C entry) counts by its variant, and K1's launches
+also by the shapes of the segments they carry (``launch``).  A launch
+inside a capture runs nothing: it is kept with the capture, whose context
+gives the capture's launches, and each replay of the captured step
+counts them (``replay``).  The captures and replays of a run are counted
+on the solver (``captures``, ``replays``).
 
 The record is the process's: the program is single-threaded, and the
-spans of one thread nest.  ``record()`` reads it, ``reset()`` empties it.
+spans of one thread nest.  ``record()`` reads it, ``reset()`` empties it
+(``reset(launches_only=True)`` zeroes the launch counts alone).
 """
 
 from __future__ import annotations
@@ -72,6 +79,9 @@ class _Record:
         self.stack = []             # the open spans, innermost last
         self.next_id = 0
         self.capture = None         # (count_nodes, parts) while capturing
+        self.kernels = {}           # name -> (number, segments)
+        self.launches = {}          # name -> its launch counts
+        self.held = None            # a capture's launch counts, capturing
 
 
 _rec = _Record()
@@ -168,21 +178,76 @@ def capture(count_nodes):
     graph's node count is read, and the capture kept with its parts'
     ranges (``record()["captures"]``) and its count as the counter
     ``captured_nodes``.  A capture that raises is not kept, and with
-    ``count_nodes`` None (a graph that cannot count) nothing is."""
-    if count_nodes is None:
-        yield
-        return
+    ``count_nodes`` None (a graph that cannot count) nothing is.  Either
+    way the hand kernels' launches inside are not counted but held: the
+    context gives them, for ``replay``."""
     r = _rec
-    parts = []
-    saved, r.capture = r.capture, (count_nodes, parts)
+    parts, held = [], {}
+    saved = r.capture, r.held
+    if count_nodes is not None:
+        r.capture = (count_nodes, parts)
+    r.held = held
     start = _perf_ns()
     try:
-        yield
-        nodes = count_nodes()
+        yield held
+        nodes = None if count_nodes is None else count_nodes()
     finally:
-        r.capture = saved
-    r.captures.append(dict(start_ns=start, nodes=nodes, parts=parts))
-    r.counters["captured_nodes"] = nodes
+        r.capture, r.held = saved
+    if count_nodes is not None:
+        r.captures.append(dict(start_ns=start, nodes=nodes, parts=parts))
+        r.counters["captured_nodes"] = nodes
+
+
+def _zero(segments):
+    """A kernel's launch counts at 0: ``launches`` and ``by_variant``;
+    with ``segments``, also ``segments``, ``by_shape`` ((variant, U, E) of
+    each segment) and ``by_group`` ((variant, its segments' sorted (U, E))
+    of each launch)."""
+    c = dict(launches=0, by_variant=collections.Counter())
+    if segments:
+        c.update(segments=0, by_shape=collections.Counter(),
+                 by_group=collections.Counter())
+    return c
+
+
+def kernel(name: str, number: int, segments: bool = False) -> None:
+    """Register the hand kernel ``name``, K<number> of the port's kernels
+    (``record()["launches"]`` lists them by number, then in the order
+    registered), whose launches carry segments when ``segments``."""
+    _rec.kernels[name] = (number, segments)
+    _rec.launches.setdefault(name, _zero(segments))
+
+
+def launch(name: str, variant: str, shapes=None) -> None:
+    """Count one launch of the registered kernel ``name`` computing
+    ``variant``, with the (U, E) of its segments ``shapes`` for a kernel
+    of segments; inside a capture, hold it with the capture instead."""
+    r = _rec
+    held = r.held
+    if held is None:
+        c = r.launches[name]
+    else:
+        c = held.get(name)
+        if c is None:
+            c = held[name] = _zero(r.kernels[name][1])
+    c["launches"] += 1
+    c["by_variant"][variant] += 1
+    if shapes is not None:
+        c["segments"] += len(shapes)
+        c["by_shape"].update((variant, U, E) for U, E in shapes)
+        c["by_group"][(variant, tuple(sorted(shapes)))] += 1
+
+
+def replay(held) -> None:
+    """Count one replay of a captured step: the launches ``held`` that its
+    capture's context gave."""
+    for name, h in held.items():
+        c = _rec.launches[name]
+        for key, n in h.items():
+            if isinstance(n, int):
+                c[key] += n
+            else:
+                c[key].update(n)
 
 
 def record() -> dict:
@@ -190,20 +255,30 @@ def record() -> dict:
     oldest first); ``totals``, name -> (count, total ns, max ns);
     ``counters``; ``captures``, each a dict of its ``start_ns``,
     ``nodes`` (the graph's node count at the capture's end) and
-    ``parts``, [(part, first node, end node)] in capture order."""
+    ``parts``, [(part, first node, end node)] in capture order;
+    ``launches``, kernel -> its launch counts (``_zero``'s keys, the
+    counters as dicts), every registered kernel in order."""
     r = _rec
+    order = sorted(r.launches, key=lambda k: r.kernels[k][0])
     return dict(spans=list(r.ring),
                 totals={k: tuple(v) for k, v in r.totals.items()},
                 counters=dict(r.counters),
                 captures=[dict(c, parts=list(c["parts"]))
-                          for c in r.captures])
+                          for c in r.captures],
+                launches={k: {key: n if isinstance(n, int) else dict(n)
+                              for key, n in r.launches[k].items()}
+                          for k in order})
 
 
-def reset() -> None:
-    """Empty the record; spans still open are recorded when they
-    close."""
+def reset(launches_only: bool = False) -> None:
+    """Empty the record; spans still open are recorded when they close.
+    With ``launches_only``, zero the hand kernels' launch counts alone and
+    keep the spans, counters and captures (set-up's among them)."""
     r = _rec
-    r.ring.clear()
-    r.totals.clear()
-    r.counters.clear()
-    r.captures.clear()
+    if not launches_only:
+        r.ring.clear()
+        r.totals.clear()
+        r.counters.clear()
+        r.captures.clear()
+    for name, (_, segments) in r.kernels.items():
+        r.launches[name] = _zero(segments)

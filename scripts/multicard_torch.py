@@ -74,9 +74,7 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from hifiles_tpu_torch import bench  # noqa: E402
-from hifiles_tpu_torch.solver.volume import (reset_counters,  # noqa: E402
-                                             volume_tdisf)
+from hifiles_tpu_torch import bench, tracing  # noqa: E402
 
 # cell -> (bench configuration, shards = cards)
 CELLS = {"plain x4": ("plain", 4), "channel x3": ("channel", 3),
@@ -122,6 +120,11 @@ def need_cards(n=2):
         raise RuntimeError(f"multicard_torch: {k} visible cards; the "
                            f"multi-card paths need at least {n}")
     return k
+
+
+def volume_launches():
+    """The volume kernel's launch counts since they were last zeroed."""
+    return tracing.record()["launches"]["volume_tdisf"]
 
 
 def sync_all():
@@ -245,14 +248,15 @@ def run_cell(cell, plain):
     rec["capture_s"] = s.capture_seconds
     rec["graph_mib"] = [(b - a) / 2**20 for a, b in zip(before, after)][:n]
     rec["shards"] = n_shards
-    reset_counters()
+    tracing.reset(launches_only=True)
     s.run(10, dt=c.p.dt)
     sync_all()
-    k1 = dict(launches=volume_tdisf.launches,
+    vol = volume_launches()
+    k1 = dict(launches=vol["launches"],
               by_shape={f"{v} U={U} E={E}": k for (v, U, E), k in
-                        volume_tdisf.by_shape.items()})
+                        vol["by_shape"].items()})
     # once per card, RK stage and variant (over-integration has two)
-    need = 10 * s.n_stages * n * len(volume_tdisf.by_variant)
+    need = 10 * s.n_stages * n * len(vol["by_variant"])
     rec["k1"] = dict(k1, need=need)
     if not s.run_path.endswith(f"captured (shards on {n} cards)"):
         raise AssertionError(f"{cell}: run path {s.run_path!r}")
@@ -352,16 +356,17 @@ def run_legs(counts=None):
                 or s._n_cards() != n:
             raise AssertionError(f"leg {name}: shards on cards "
                                  f"{s._card_of}")
-        reset_counters()
+        tracing.reset(launches_only=True)
         s.run(LEG_MORE_STEPS, dt=dt)
         sync_all()
-        launches = volume_tdisf.launches
+        vol = volume_launches()
+        launches = vol["launches"]
         by_group = {f"{v} {list(shapes)}": q for (v, shapes), q in
-                    volume_tdisf.by_group.items()}
+                    vol["by_group"].items()}
         if counts is not None:
             for key in ("by_variant", "by_shape", "by_group"):
                 counts.setdefault(key, collections.Counter()).update(
-                    getattr(volume_tdisf, key))
+                    vol[key])
         need = LEG_MORE_STEPS * s.n_stages * n
         multichip.check_leg(name, s)
         got = state(s)

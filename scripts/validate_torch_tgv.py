@@ -202,9 +202,8 @@ def validate(order=4, n1=16, t_end=14.0, device="cuda", dtype=torch.float32,
     resolution is the reference (JAX_CURVES; the 16^3 run at other
     sizes); ``laminar_only``: a run to t <= 4 held by the laminar gates
     alone (compare)."""
-    from hifiles_tpu_torch import Solver, periodic_hex_mesh
+    from hifiles_tpu_torch import Solver, periodic_hex_mesh, tracing
     from hifiles_tpu_torch.parallel import ShardedSolver, select_devices
-    from hifiles_tpu_torch.solver.volume import reset_counters, volume_tdisf
     p = tgv_input(order, n1)
     mesh = periodic_hex_mesh(n1, n1, n1)
     if devices:
@@ -214,12 +213,12 @@ def validate(order=4, n1=16, t_end=14.0, device="cuda", dtype=torch.float32,
     else:
         s = Solver(p, mesh, device=device, dtype=dtype)
         n_cards = 1
-    reset_counters()
+    tracing.reset(launches_only=True)
     t0 = time.perf_counter()
     ts, tkes = tke_curve(s, t_end, SAMPLE, log)
     wall = time.perf_counter() - t0
     steps = int(round(SAMPLE / p.dt)) * (ts.size - 1)
-    launches = volume_tdisf.launches
+    launches = tracing.record()["launches"]["volume_tdisf"]["launches"]
     if s.device.type == "cuda":
         path = "SoA (fast) captured" + (f" (shards on {n_cards} cards)"
                                         if n_cards > 1 else "")

@@ -2,10 +2,10 @@
 hifiles_tpu_torch/csrc/face_point.cuh (face_point with each Riemann
 solver, the LDG switch and combination, tile_compute and tile_store, and
 naive_point) and its launch checks, compiled by g++ into a host driver
-with the C entries of the CUDA library: the tiled entry walks every tile
-as the kernel's blocks do (every point of a tile in plane order, then
-every point in face order; flat planes a point at a time, as the kernel
-maps them), the naive entry every point.  The wrapper's
+with the C entries of the CUDA library: the entry walks every tile as
+the kernel's blocks do (every point of a tile in plane order, then every
+point in face order; flat planes a point at a time through naive_point,
+as the kernel maps them).  The wrapper's
 own argument structs (common_flux.launch) drive it.  Held against the
 plain version (the plane Riemann functions of residual_soa.py, the LDG
 line and the indexed stores of the write-back) for Rusanov, RoeM and HLLC
@@ -28,9 +28,9 @@ import numpy as np
 import pytest
 import torch
 
+from hifiles_tpu_torch import backend, tracing
 from hifiles_tpu_torch.backend import CSRC
 from hifiles_tpu_torch.solver import common_flux as K
-from hifiles_tpu_torch.solver import volume as V
 from hifiles_tpu_torch.solver.residual import ResidualConfig
 
 torch.set_num_threads(1)
@@ -49,11 +49,10 @@ template <typename T>
 struct Walk {
   const HftFaceArgs* a;
   hft::FacePrm<T> prm;
-  bool naive;
   template <typename, int D, int F, int SOLVER, bool VISC>
   int run() const {
     const int n = a->n_rows * a->n_cols;
-    if (naive || a->n_rows == 1) {
+    if (a->n_rows == 1) {
       for (int p = 0; p < n; ++p) {
         hft::naive_point<T, D, F, SOLVER, VISC>(*a, prm, p);
       }
@@ -81,11 +80,10 @@ struct Walk {
 };
 
 template <typename T>
-int walk(const HftFaceArgs* a, const HftFacePhysics* p, bool naive) {
+int walk(const HftFaceArgs* a, const HftFacePhysics* p) {
   if (hft::face_refused(*a, *p)) return 1;
   if (static_cast<long long>(a->n_rows) * a->n_cols == 0) return 0;
-  return hft::dispatch_face<T>(*p, Walk<T>{a, hft::face_prm_of<T>(*p),
-                                           naive});
+  return hft::dispatch_face<T>(*p, Walk<T>{a, hft::face_prm_of<T>(*p)});
 }
 
 }  // namespace
@@ -93,19 +91,11 @@ int walk(const HftFaceArgs* a, const HftFacePhysics* p, bool naive) {
 extern "C" {
 int hft_common_flux_f32(const HftFaceArgs* a, const HftFacePhysics* p, int,
                         void*) {
-  return walk<float>(a, p, false);
+  return walk<float>(a, p);
 }
 int hft_common_flux_f64(const HftFaceArgs* a, const HftFacePhysics* p, int,
                         void*) {
-  return walk<double>(a, p, false);
-}
-int hft_common_flux_naive_f32(const HftFaceArgs* a, const HftFacePhysics* p,
-                              int, void*) {
-  return walk<float>(a, p, true);
-}
-int hft_common_flux_naive_f64(const HftFaceArgs* a, const HftFacePhysics* p,
-                              int, void*) {
-  return walk<double>(a, p, true);
+  return walk<double>(a, p);
 }
 }
 """
@@ -114,7 +104,7 @@ int hft_common_flux_naive_f64(const HftFaceArgs* a, const HftFacePhysics* p,
 @pytest.fixture(autouse=True)
 def zero_counters():
     yield
-    V.reset_counters()
+    tracing.reset()
 
 
 @pytest.fixture(scope="module")
@@ -128,7 +118,7 @@ def host_kernel(tmp_path_factory):
     subprocess.run(["g++", "-O1", "-std=c++17", "-shared", "-fPIC",
                     "-I", CSRC, "-o", str(lib), str(d / "host_driver.cpp")],
                    check=True, capture_output=True, timeout=300)
-    return K.bind_entries(ctypes.CDLL(str(lib)))
+    return backend.load(lib)
 
 
 def entry(lib, name, dtype):
@@ -222,14 +212,15 @@ PHYSICS = ([(0, s, d, d + 2) for s in (3, 0, 2) for d in (2, 3)]
         p[0], "lf" if p[0] else K.SOLVERS[p[1]], p[2], p[3]))
 def test_common_flux_source_matches_plain_version(host_kernel, phys):
     """K4, one instantiation of (solver, d, F): viscous and inviscid, f32
-    and f64, every layout, full and one-column normals, both thread
-    mappings; the slots of the launch written once each, the others
-    untouched."""
+    and f64, every layout (the flat ones through the thread a point
+    mapping), full and one-column normals; the slots of the launch
+    written once each, the others untouched."""
     eq, solver, d, F = phys
+    tracing.reset()
     n = 0
-    for viscous, dtype, layout, one_column, name in itertools.product(
+    for viscous, dtype, layout, one_column in itertools.product(
             (True, False), (torch.float32, torch.float64), sorted(LAYOUTS),
-            (False, True), K.ENTRIES):
+            (False, True)):
         cfg = dataclasses.replace(BASE, equation=eq,
                                   riemann_solve_type=solver, viscous=viscous)
         ops = operands(d, F, layout, 97 * d + 13 * F + solver)
@@ -237,9 +228,10 @@ def test_common_flux_source_matches_plain_version(host_kernel, phys):
         R, C, n_r = LAYOUTS[layout]
         assert K.check(*args, cfg) == (d, F, R or 1, C, n_r)
         out = torch.full((F, args[-1]), float("nan"), dtype=dtype)
-        K.launch(entry(host_kernel, name, dtype), *args, cfg, out, 0, None)
+        K.launch(entry(host_kernel, "common_flux", dtype), *args, cfg, out,
+                 0, None)
         want = K.common_flux_ref(*args, cfg)
-        what = (viscous, dtype, layout, one_column, name)
+        what = (viscous, dtype, layout, one_column)
         written = torch.cat([args[5], args[6]])
         got, ref = out[:, written], want[:, written]
         tol = 1e-5 if dtype == torch.float32 else 1e-12
@@ -254,7 +246,9 @@ def test_common_flux_source_matches_plain_version(host_kernel, phys):
         cpu = K.common_flux(*args, cfg)
         assert torch.equal(cpu[:, written], ref), what
         n += 1
-    assert n == 96 and K.common_flux.launches == 0
+    # each host launch counts; the CPU wrapper's plain calls do not
+    assert n == 48
+    assert tracing.record()["launches"]["common_flux"]["launches"] == 48
 
 
 def test_common_flux_plain_version_is_the_residuals_old_form():
@@ -342,28 +336,6 @@ def test_common_flux_source_refuses(host_kernel):
         kw.update(change)
         with pytest.raises(ValueError, match=match):
             K.common_flux(**kw)
-
-
-def test_common_flux_counter_follows_captured_replays():
-    """K4's launch counter rides volume.captured_launches and count_replay
-    as the volume kernel's does: a capture's launches come back as one
-    replay's and leave the counter as it was; each replay adds them;
-    reset_counters zeroes them."""
-    f = K.common_flux
-
-    def capture():
-        for _ in range(5):
-            f.launches += 1
-            f.by_variant["D3F5+hllc+ldg"] += 1
-    V.reset_counters()
-    delta = V.captured_launches(capture)
-    assert (f.launches, len(f.by_variant)) == (0, 0)
-    for _ in range(3):
-        V.count_replay(delta)
-    assert f.launches == 15
-    assert dict(f.by_variant) == {"D3F5+hllc+ldg": 15}
-    V.reset_counters()
-    assert (f.launches, len(f.by_variant)) == (0, 0)
 
 
 @pytest.mark.parametrize("cfg,d,F,want", [

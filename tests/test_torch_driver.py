@@ -26,6 +26,7 @@ from hifiles_tpu.mesh.generate import (periodic_hex_mesh,
                                        ywall_channel_quad_mesh)
 
 from hifiles_tpu_torch import driver as port_driver
+from hifiles_tpu_torch import tracing
 from hifiles_tpu_torch.config.params import RunInput
 from hifiles_tpu_torch.convert import run_input_from
 
@@ -174,17 +175,57 @@ def assert_outputs_match(tmp_path, outs, names=("jax", "port")):
             assert_close(np.array(na, dtype=float), np.array(nb, dtype=float))
 
 
+def expected_launch_lines(lines=None):
+    """The launch lines, in their format, of every hand kernel that
+    tracing registers, by number: ``lines`` gives a kernel's own lines,
+    and a kernel not in it launched nothing."""
+    out = []
+    for name, c in tracing.record()["launches"].items():
+        if lines and name in lines:
+            out += lines[name]
+            continue
+        out.append(f"{name} launches: {{}}")
+        if "by_shape" in c:
+            out += [f"{name} segments by shape: []",
+                    f"{name} launches by group: []"]
+    return out
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_driver_matches_jax(case, tmp_path, capsys):
     deck = CASES[case](tmp_path)
     outs = run_both(deck, tmp_path, capsys)
     assert_outputs_match(tmp_path, outs)
-    assert "volume_tdisf launches" in outs["port"]
-    assert "flux_point_qn launches" in outs["port"]
-    assert "solution_point_gradient launches" in outs["port"]
-    assert "common_flux launches" in outs["port"]
+    # the CPU launches no hand kernel: every kernel's lines, empty
+    assert "\n".join(expected_launch_lines()) in outs["port"]
     if case == "couette":
         assert "force.dat" in files(tmp_path / "port")
+
+
+def test_launch_lines_read_the_record():
+    """The driver's launch lines come from the program's record, every
+    hand kernel in order, the volume kernel's segments by shape and
+    launches by group after its launches, in the lines' own format; a
+    replay of a capture counts its held launches."""
+    tracing.reset()
+    try:
+        tracing.launch("volume_tdisf", "D3F5+viscous", [(125, 64), (27, 8)])
+        with tracing.capture(None) as held:
+            tracing.launch("common_flux", "D3F5+hllc+ldg")
+        for _ in range(2):
+            tracing.replay(held)
+        assert port_driver.launch_lines() == expected_launch_lines({
+            "volume_tdisf": [
+                'volume_tdisf launches: {"D3F5+viscous": 1}',
+                'volume_tdisf segments by shape: [["D3F5+viscous", 125, 64,'
+                ' 1], ["D3F5+viscous", 27, 8, 1]]',
+                'volume_tdisf launches by group: [["D3F5+viscous", [[27, 8],'
+                ' [125, 64]], 1]]'],
+            "common_flux": ['common_flux launches: {"D3F5+hllc+ldg": 2}']})
+        tracing.reset()
+        assert port_driver.launch_lines() == expected_launch_lines()
+    finally:
+        tracing.reset()
 
 
 def test_restart_round_trip(tmp_path, capsys):

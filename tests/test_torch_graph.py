@@ -20,8 +20,8 @@ break a capture on the card.  Then:
   (b) the runner's bookkeeping, bit for bit against the eager loop
       (``run(..., graph=False)``): chunks of several calls, a new dt
       without a new capture, a new dt kind or draw object with one,
-      snapshot/restore between calls, the volume kernel's counters once
-      per replayed step;
+      snapshot/restore between calls, each hand kernel's launch counts
+      once per replayed step;
   (c) parity: the captured runner in f64 against the JAX Solver,
       MixedSolver and ShardedSolver chunks for 3 steps on the same numpy
       inputs, at tests/test_residual_soa.py's 1e-10 * max(scale, 1).
@@ -45,9 +45,10 @@ from hifiles_tpu.solver.multiblock import MixedSolver as JaxMixedSolver
 from hifiles_tpu.solver.solver import Solver as JaxSolver
 
 import hifiles_tpu_torch
+from hifiles_tpu_torch import tracing
 from hifiles_tpu_torch.convert import mesh_from, run_input_from
 from hifiles_tpu_torch.parallel import ShardedSolver, select_devices
-from hifiles_tpu_torch.solver import volume
+from hifiles_tpu_torch.solver import common_flux, ldg_element, volume
 from hifiles_tpu_torch.solver.turb_inlet import DeviceDraws, ReplayDraws
 
 sys.path.insert(0, os.path.dirname(__file__))
@@ -85,9 +86,9 @@ def no_host_syncs():
 class IdentityGraph:
     """graph.CudaStepGraph's stand-in on the CPU for ``solver``: a capture
     runs the step's Python once, then returns the solver to where it was
-    (a CUDA capture runs no kernel); a replay runs the step with the
-    volume kernel's counters held (a replay makes no host call: the
-    runner counts it).  ``captures`` counts the captures of every
+    (a CUDA capture runs no kernel); a replay runs the step with its
+    launches held, as a capture holds them (a replay makes no host call:
+    the runner counts it).  ``captures`` counts the captures of every
     IdentityGraph."""
 
     captures = 0
@@ -111,9 +112,9 @@ class IdentityGraph:
             body()
         self.solver.restore(snap)
 
-    def replay(self):
-        with no_host_syncs():
-            volume.captured_launches(self.solver._step_body)
+    def replay(self, body):
+        with no_host_syncs(), tracing.capture(None):
+            body()
 
     def release(self):
         pass
@@ -320,38 +321,74 @@ def test_new_dt_without_new_capture():
     assert torch.equal(state(s), state(ref))
 
 
-def test_volume_kernel_counted_per_replayed_step(monkeypatch):
-    """The volume kernel's counters count the warm-up step once and each
-    replayed step once, as the eager loop counts its steps: one grouped
-    launch per RK stage, whatever the blocks and shards, carrying every
-    block (a plain version that counts each grouped call as one launch
-    stands in for the card's launches)."""
-    f = volume.volume_tdisf
-    plain = volume.volume_tdisf_many_ref
+# kernel -> (module, the plain version its wrapper calls on the CPU)
+PLAIN = {"volume_tdisf": (volume, "volume_tdisf_many_ref"),
+         "flux_point_qn": (ldg_element, "flux_point_qn_ref"),
+         "solution_point_gradient": (ldg_element,
+                                     "solution_point_gradient_ref"),
+         "common_flux": (common_flux, "common_flux_ref")}
 
-    def counted(calls, prm):
-        f.launches += 1
-        f.segments += len(calls)
-        f.by_variant["cpu"] += 1
-        f.by_shape.update(("cpu", c.u.shape[0], c.u.shape[2])
-                          for c in calls)
-        return plain(calls, prm)
-    monkeypatch.setattr(volume, "volume_tdisf_many_ref", counted)
-    for name, blocks in (("plain", 1), ("mixed_tri_quad", 2),
-                         ("tgv_4_shards", 4)):
-        counts = []
-        for graph in (True, False):
-            s, _, dt = build(name)
-            volume.reset_counters()
-            s.run(3, dt=dt, graph=graph)
-            s.run(2, dt=dt, graph=graph)
-            counts.append((f.launches, f.segments, dict(f.by_variant),
-                           dict(f.by_shape)))
-        assert counts[0] == counts[1]
-        launches, segments, _, by_shape = counts[0]
-        assert launches == 5 * s.n_stages
-        assert segments == sum(by_shape.values()) == 5 * s.n_stages * blocks
-    volume.reset_counters()
+
+def count_plain(monkeypatch, kernel):
+    """Stand in for the card's launches of ``kernel``: each call of its
+    plain version counts as one launch in the program's record (the
+    volume kernel's with its blocks' (U, E))."""
+    mod, name = PLAIN[kernel]
+    plain = getattr(mod, name)
+
+    def counted(*args, **kwargs):
+        shapes = ([(c.u.shape[0], c.u.shape[2]) for c in args[0]]
+                  if kernel == "volume_tdisf" else None)
+        tracing.launch(kernel, "stand-in", shapes)
+        return plain(*args, **kwargs)
+    monkeypatch.setattr(mod, name, counted)
+
+
+def launches(kernel):
+    return tracing.record()["launches"][kernel]
+
+
+# mesh -> the blocks (shards) the volume kernel's grouped launch carries
+BLOCKS = {"plain": 1, "mixed_tri_quad": 2, "tgv_4_shards": 4}
+
+
+@pytest.mark.parametrize("mesh", list(BLOCKS))
+@pytest.mark.parametrize("kernel", list(PLAIN))
+def test_launches_counted_per_replayed_step(monkeypatch, kernel, mesh):
+    """Each hand kernel's launch counts (tracing's record) follow the
+    captured run on one block, a MixedSolver's two and a ShardedSolver's
+    four shards: the warm-up step counts as an eager step, the capture
+    adds nothing, each replay adds one step's launches, so that 5
+    captured steps count what 5 eager steps count, in launches, variants
+    and (the volume kernel) segments, shapes and groups; the volume
+    kernel launches once per RK stage, whatever the blocks and shards,
+    carrying every block; tracing.reset() clears the count."""
+    count_plain(monkeypatch, kernel)
+    ref, _, dt = build(mesh, seam=False)
+    s, _, _ = build(mesh)
+    tracing.reset()
+    ref.run(1, dt=dt, graph=False)
+    step = launches(kernel)
+    assert step["launches"] >= s.n_stages
+    tracing.reset()
+    s.run(1, dt=dt)
+    assert (s.captures, s.replays) == (1, 0)
+    assert launches(kernel) == step
+    for k in range(1, 5):
+        s.run(1, dt=dt)
+        got = launches(kernel)
+        assert s.replays == k and got["launches"] == (k + 1) * \
+            step["launches"]
+    tracing.reset()
+    ref.run(5, dt=dt, graph=False)
+    assert got == launches(kernel)
+    if kernel == "volume_tdisf":
+        assert got["launches"] == 5 * s.n_stages
+        assert got["segments"] == sum(got["by_shape"].values()) == \
+            5 * s.n_stages * BLOCKS[mesh]
+    tracing.reset()
+    assert launches(kernel)["launches"] == 0
+    assert not launches(kernel)["by_variant"]
 
 
 def test_card_graph_is_the_default():

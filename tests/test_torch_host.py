@@ -181,8 +181,8 @@ class CpuGraph:
         snap = self.solver.snapshot()
         body()
         self.solver.restore(snap)
-    def replay(self):
-        self.solver._step_body()
+    def replay(self, body):
+        body()
     def release(self):
         pass
 p = tgv_input(order=2)

@@ -335,7 +335,7 @@ def test_inlet_host_setup_identical(mode):
             assert v == w, k
 
 
-# meshes of the partition and shard-table copies (parallel/sharding.py)
+# meshes of the partition copies (parallel/sharding.py)
 SHARD_MESHES = {
     "hex": lambda g: g.periodic_hex_mesh(4, 4, 2),
     "quad_channel": lambda g: g.channel_quad_mesh(10, 4, 0.0, 2.0, 0.0, 1.0),
@@ -354,18 +354,6 @@ def shard_setup(gen, build_faces_fn, elements, ops_mod, case):
     name = {v: k for k, v in TYPES.items()}[int(mesh.ctype[0])]
     return conn, elements.build_element_block(mesh, conn,
                                               ops_of(ops_mod, name, 2))
-
-
-def shard_layout(shard_of, n):
-    """(loc_of, El) of a partition, as the ShardedSolvers lay it out."""
-    sizes = np.bincount(shard_of, minlength=n)
-    loc_of = np.empty(shard_of.size, dtype=np.int64)
-    order = np.argsort(shard_of, kind="stable")
-    off = 0
-    for s in range(n):
-        loc_of[order[off:off + sizes[s]]] = np.arange(sizes[s])
-        off += sizes[s]
-    return loc_of, int(sizes.max())
 
 
 @pytest.mark.parametrize("case", sorted(SHARD_MESHES))
@@ -395,29 +383,3 @@ def test_partitions_identical(case):
         same(jsh._refine_partition(xadj, both[:, 1], cont.copy(), n),
              tsh._refine_partition(xadj, both[:, 1], cont.copy(), n),
              "refine")
-
-
-@pytest.mark.parametrize("case", sorted(SHARD_MESHES))
-def test_build_shard_tables_identical(case):
-    """build_shard_tables (parallel/sharding.py:270-430), its padded
-    interior, boundary and halo tables, send lists, slot sources and the
-    halo faces in receive order, on 5 shards of the contiguous and the
-    graph partition, against the JAX module's."""
-    import hifiles_tpu.parallel.sharding as jsh
-    import hifiles_tpu.solver.elements as jel
-    import hifiles_tpu_torch.parallel.sharding as tsh
-    import hifiles_tpu_torch.solver.elements as tel
-    ca, ba = shard_setup(jgen, jax_build_faces, jel, jops, case)
-    cb, bb = shard_setup(tgen, port_build_faces, tel, tops, case)
-    E, Pf, n = ba.n_eles, ba.ops.n_fpts, 5
-    for shard_of in (jsh._contiguous_partition(E, n),
-                     jsh.graph_partition(ca, E, n)):
-        loc_of, El = shard_layout(shard_of, n)
-        args = (shard_of, n, Pf, ba.ops.n_fpts_per_face, ba.ops.order,
-                loc_of, El)
-        a = jsh.build_shard_tables(ca, *args,
-                                   pos_fpts=ba.pos_fpts.reshape(E, Pf, -1))
-        b = tsh.build_shard_tables(cb, *args,
-                                   pos_fpts=bb.pos_fpts.reshape(E, Pf, -1))
-        assert a.n_halo > 0 and len(a.send_idx) > 0
-        assert same(a, b, case) > 15

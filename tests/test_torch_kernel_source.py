@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from hifiles_tpu_torch import backend, tracing
 from hifiles_tpu_torch.backend import CSRC
 from hifiles_tpu_torch.solver import volume as V
 
@@ -130,7 +131,7 @@ def zero_counters():
     """The host driver's launches count on the kernel's counters, which
     the CPU tests elsewhere expect at 0: set them back after each test."""
     yield
-    V.reset_counters()
+    tracing.reset()
 
 
 @pytest.fixture(scope="module")
@@ -144,13 +145,34 @@ def host_kernel(tmp_path_factory):
     subprocess.run(["g++", "-O1", "-std=c++17", "-shared", "-fPIC",
                     "-I", CSRC, "-o", str(lib), str(d / "host_driver.cpp")],
                    check=True, capture_output=True, timeout=300)
-    lib = V.bind_entries(ctypes.CDLL(str(lib)))
+    lib = backend.load(lib)
     for name in ("host_table_f32", "host_table_f64"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(V._Segment), ctypes.c_int,
                        ctypes.POINTER(V._Args)]
         fn.restype = ctypes.c_int
     return lib
+
+
+def test_load_binds_the_entries_a_library_has(host_kernel):
+    """backend.load binds each declared entry the host build has (the
+    volume kernel's) and passes over the others; backend.call raises
+    naming the kernel on an error code, and counts only a launch that
+    ran."""
+    for dt in ("f32", "f64"):
+        fn = getattr(host_kernel, f"hft_volume_tdisf_{dt}")
+        assert fn.argtypes[0] is ctypes.POINTER(V._Segment)
+        assert fn.argtypes[2] is ctypes.POINTER(V._Args)
+        assert fn.restype is ctypes.c_int
+    assert not hasattr(host_kernel, "hft_ldg_fpts_f32")
+    tracing.reset()
+    with pytest.raises(RuntimeError, match="^volume_tdisf kernel launch "
+                       "failed: CUDA error 7$"):
+        backend.call("volume_tdisf", "v", lambda: 7, shapes=[(3, 4)])
+    backend.call("volume_tdisf", "v", lambda: 0, shapes=[(3, 4)])
+    f = tracing.record()["launches"]["volume_tdisf"]
+    assert (f["launches"], f["segments"], f["by_variant"]) == (1, 1,
+                                                               {"v": 1})
 
 
 def run_host(lib, calls, prm):
@@ -335,13 +357,15 @@ def test_kernel_source_splits_long_tables(host_kernel):
     calls = [call_of(operands(3, 20 + k, d, F, k), prm, torch.float64,
                      "full" if k % 2 else "broadcast", False)
              for k in range(n)]
-    V.reset_counters()
+    tracing.reset()
     outs, parts = run_host(host_kernel, calls, prm)
     assert [len(p) for p in parts] == [V.MAX_SEGMENTS, 4]
-    f, key = V.volume_tdisf, V.call_variant(calls[0], prm)
-    assert (f.launches, f.segments, dict(f.by_variant)) == (2, n, {key: 2})
-    assert sum(f.by_shape.values()) == n and sorted(
-        len(k[1]) for k in f.by_group) == [4, V.MAX_SEGMENTS]
+    f = tracing.record()["launches"]["volume_tdisf"]
+    key = V.call_variant(calls[0], prm)
+    assert (f["launches"], f["segments"], f["by_variant"]) == \
+        (2, n, {key: 2})
+    assert sum(f["by_shape"].values()) == n and sorted(
+        len(k[1]) for k in f["by_group"]) == [4, V.MAX_SEGMENTS]
     for c, got in zip(calls, outs):
         held(got, V.volume_tdisf_ref(*c[:3], prm, *c[3:]), torch.float64,
              "split")

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from hifiles_tpu_torch import backend, tracing
 from hifiles_tpu_torch.backend import CSRC
 from hifiles_tpu_torch.solver import ldg_element as L
 from hifiles_tpu_torch.solver import volume as V
@@ -94,7 +95,7 @@ int hft_ldg_upts_f64(const HftUptsArgs* a, int, void*) {
 @pytest.fixture(autouse=True)
 def zero_counters():
     yield
-    V.reset_counters()
+    tracing.reset()
 
 
 @pytest.fixture(scope="module")
@@ -108,7 +109,7 @@ def host_kernel(tmp_path_factory):
     subprocess.run(["g++", "-O1", "-std=c++17", "-shared", "-fPIC",
                     "-I", CSRC, "-o", str(lib), str(d / "host_driver.cpp")],
                    check=True, capture_output=True, timeout=300)
-    return L.bind_entries(ctypes.CDLL(str(lib)))
+    return backend.load(lib)
 
 
 def entry(lib, name, dtype):
@@ -175,6 +176,7 @@ def test_ldg_fpts_source_matches_plain_version(host_kernel, d, sa, sgs):
     dtype, with and without the gradient output."""
     F = d + 2 + int(sa)
     ops = fpts_operands(d, F, 10 * d + 3 * sa + sgs)
+    tracing.reset()
     n = 0
     for fix_vis, add, dtype, geo, with_grad in itertools.product(
             (1, 0), (False, True), (torch.float32, torch.float64),
@@ -199,7 +201,9 @@ def test_ldg_fpts_source_matches_plain_version(host_kernel, d, sa, sgs):
         assert torch.equal(got[0], want_qn)
         assert (got[1] is None) == (not with_grad)
         n += 1
-    assert n == 48 and L.flux_point_qn.launches == 0
+    # each host launch counts; the CPU wrapper's plain calls do not
+    assert n == 48
+    assert tracing.record()["launches"]["flux_point_qn"]["launches"] == 48
 
 
 # solution-point shapes: (d, U, F, E)
@@ -274,28 +278,3 @@ def test_ldg_source_refuses(host_kernel):
         L.solution_point_gradient(torch.zeros(3, 4, 5, 6),
                                   torch.zeros(3, 3, 4, 6),
                                   torch.zeros(4, 2))
-
-
-def test_ldg_counters_follow_captured_replays():
-    """K3's launch counters ride volume.captured_launches and count_replay
-    as the volume kernel's do: a capture's launches come back as one
-    replay's and leave the counters as they were; each replay adds
-    them; reset_counters zeroes them."""
-    f, g = L.flux_point_qn, L.solution_point_gradient
-
-    def capture():
-        for _ in range(5):
-            f.launches += 1
-            f.by_variant["D3F5+viscous"] += 1
-            g.launches += 1
-            g.by_variant["D3F5"] += 1
-    V.reset_counters()
-    delta = V.captured_launches(capture)
-    assert (f.launches, g.launches, len(f.by_variant)) == (0, 0, 0)
-    for _ in range(3):
-        V.count_replay(delta)
-    assert (f.launches, g.launches) == (15, 15)
-    assert dict(f.by_variant) == {"D3F5+viscous": 15}
-    assert dict(g.by_variant) == {"D3F5": 15}
-    V.reset_counters()
-    assert (f.launches, g.launches, len(g.by_variant)) == (0, 0, 0)

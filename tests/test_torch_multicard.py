@@ -40,18 +40,19 @@ from hifiles_tpu.parallel.mixed_sharding import \
     ShardedMixedSolver as JaxShardedMixedSolver
 from hifiles_tpu.parallel.sharding import ShardedSolver as JaxShardedSolver
 
+from hifiles_tpu_torch import tracing
 from hifiles_tpu_torch.convert import mesh_from, run_input_from
 from hifiles_tpu_torch.parallel import (ShardedMixedSolver, ShardedSolver,
                                         select_devices)
-from hifiles_tpu_torch.parallel.cards import card_waits
-from hifiles_tpu_torch.solver import volume
+from hifiles_tpu_torch.parallel.cards import CardStep, card_waits
 from hifiles_tpu_torch.solver.turb_inlet import ReplayDraws
 
 sys.path.insert(0, os.path.dirname(__file__))
 from test_face_path import tgv_input  # noqa: E402
 from test_mixed import vortex_input  # noqa: E402
 from test_torch_featured import channel_twin, ramped_duct  # noqa: E402
-from test_torch_graph import IdentityGraph, no_host_syncs  # noqa: E402
+from test_torch_graph import (IdentityGraph, count_plain,  # noqa: E402
+                              no_host_syncs)
 from test_torch_turb_inlet import duct_3d  # noqa: E402
 
 torch.set_num_threads(1)
@@ -88,8 +89,8 @@ class StandInCards:
     """graph.CudaCards' stand-in for ``solver`` with its shards on the
     stand-in cards ``card_of`` (shard -> card): it logs each replayed
     segment's waits, graph and record, makes copies with ``copy_``, and
-    under ``rerun`` runs a replay's program with the volume kernel's
-    counters held (the replay is counted once by the runner)."""
+    under ``rerun`` runs a replay's program with its launches held, as a
+    capture holds them (the replay is counted once by the runner)."""
 
     def __init__(self, solver, card_of):
         n = max(card_of) + 1
@@ -137,8 +138,8 @@ class StandInCards:
         dst.copy_(src)
 
     def rerun(self, fn):
-        with no_host_syncs():
-            volume.captured_launches(fn)
+        with no_host_syncs(), tracing.capture(None):
+            fn()
 
 
 def tgv4():
@@ -197,18 +198,13 @@ def test_segmented_step_equals_eager(name, monkeypatch):
     volume stage's grouped call once per RK stage (a plain version that
     counts each grouped call as one launch stands in for the card's), and
     the run path naming the cards."""
-    f, plain = volume.volume_tdisf, volume.volume_tdisf_many_ref
-
-    def counted(calls, prm):
-        f.launches += 1
-        return plain(calls, prm)
-    monkeypatch.setattr(volume, "volume_tdisf_many_ref", counted)
+    count_plain(monkeypatch, "volume_tdisf")
     s, p, _ = build(name)
     ref, _, _ = build(name)
-    volume.reset_counters()
+    tracing.reset()
     s.run(3, dt=p.dt)
     s.run(2, dt=p.dt)
-    launches = volume.volume_tdisf.launches
+    launches = tracing.record()["launches"]["volume_tdisf"]["launches"]
     ref.run(5, dt=p.dt, graph=False)
     n = CASES[name][1]
     assert s.run_path.endswith(f"captured (shards on {n} cards)")
@@ -217,7 +213,7 @@ def test_segmented_step_equals_eager(name, monkeypatch):
     assert torch.equal(state(s), state(ref)) and s.time == ref.time
     # the stand-ins share the CPU, whose grouped call carries every shard
     assert launches == 5 * s.n_stages
-    volume.reset_counters()
+    tracing.reset()
 
 
 def sem_duct():
@@ -388,6 +384,30 @@ def test_one_card_keeps_its_whole_step_graph():
     assert isinstance(s._graph, IdentityGraph)
     assert s._cstep is None and s._cbufs == {} and s._reps is None
     assert torch.equal(state(s), state(ref))
+
+
+@pytest.mark.parametrize("cards", [False, True],
+                         ids=["one card", "stand-in cards"])
+def test_one_run_chunk_for_one_card_or_several(cards):
+    """BlockLoop's run chunk is the one chunk, its graph the one-card
+    stand-in (IdentityGraph) or the step cut per card (CardStep on the
+    stand-in cards): run(3) then run(2) make one capture and 4 replays;
+    a per-element dt, a new kind, captures anew and a new dt of that kind
+    does not; the state is the eager run's bit for bit."""
+    s, p, _ = build("tgv x4", cards=cards)
+    ref, _, _ = build("tgv x4", cards=cards)
+    local = np.full(s.n_eles, p.dt)
+    runs = [(3, p.dt), (2, p.dt), (2, local), (2, 0.5 * local)]
+    counts = []
+    for n, dt in runs:
+        s.run(n, dt=dt)
+        ref.run(n, dt=dt, graph=False)
+        counts.append((s.captures, s.replays))
+    assert counts == [(1, 2), (1, 4), (2, 5), (2, 7)]
+    assert s.run_path.endswith("captured (shards on 4 cards)" if cards
+                               else "captured")
+    assert isinstance(s._graph, CardStep if cards else IdentityGraph)
+    assert torch.equal(state(s), state(ref)) and s.time == ref.time
 
 
 # ----------------------------------------------------------------------

@@ -46,7 +46,7 @@ from hifiles_tpu.parallel.mixed_sharding import \
     ShardedMixedSolver as JaxShardedMixedSolver
 from hifiles_tpu.parallel.sharding import ShardedSolver as JaxShardedSolver
 
-from hifiles_tpu_torch import multichip
+from hifiles_tpu_torch import multichip, tracing
 from hifiles_tpu_torch.convert import run_input_from
 from hifiles_tpu_torch.parallel import (ShardedMixedSolver, ShardedSolver,
                                         select_devices)
@@ -57,10 +57,16 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.dirname(__file__))
 import __graft_entry__ as graft  # noqa: E402
+from test_torch_graph import count_plain  # noqa: E402
 from test_torch_multicard import (CASES, StandInCards,  # noqa: E402
                                   happens_before, multicard_torch, state)
 
 torch.set_num_threads(1)
+
+
+def launched():
+    """The volume kernel's launches in the program's record."""
+    return tracing.record()["launches"]["volume_tdisf"]["launches"]
 
 N = 8
 CARD_OF = [s % 4 for s in range(N)]
@@ -200,21 +206,21 @@ def leg_segmented(name, monkeypatch):
     every block, none of them empty), the run path naming the 4 cards, the
     JAX leg's checks passed, and the schedule of the replays ordering
     every copy."""
-    f, plain = volume.volume_tdisf, volume.volume_tdisf_many_ref
+    plain = volume.volume_tdisf_many_ref
     sizes = []
 
     def counted(calls, prm):
-        f.launches += 1
+        tracing.launch("volume_tdisf", "stand-in")
         sizes.extend(c.u.shape[2] for c in calls)
         return plain(calls, prm)
     monkeypatch.setattr(volume, "volume_tdisf_many_ref", counted)
     s, p, _ = port_leg(name)
     ref, _, _ = port_leg(name)
     steps = multichip.LEGS[name].steps
-    volume.reset_counters()
+    tracing.reset()
     s.run(steps, dt=p.dt)
     s.run(2, dt=p.dt)
-    launches = volume.volume_tdisf.launches
+    launches = launched()
     ref.run(steps + 2, dt=p.dt, graph=False)
     multichip.check_leg(name, s)
     assert s.run_path.endswith("captured (shards on 4 cards)")
@@ -224,7 +230,7 @@ def leg_segmented(name, monkeypatch):
     assert launches == (steps + 2) * s.n_stages
     assert min(sizes) > 0
     assert check_schedule(s, steps + 1) > 0
-    volume.reset_counters()
+    tracing.reset()
 
 
 @pytest.mark.parametrize("name", ["plain", "shock", "smag", "rans", "p1"])
@@ -307,18 +313,13 @@ def test_same_card_neighbours_equal_eager(name, monkeypatch):
     between two cards (none between shards of one card), and the logged
     schedule of the 4 replays orders each copy's read after its write and
     before the source's next write."""
-    f, plain = volume.volume_tdisf, volume.volume_tdisf_many_ref
-
-    def counted(calls, prm):
-        f.launches += 1
-        return plain(calls, prm)
-    monkeypatch.setattr(volume, "volume_tdisf_many_ref", counted)
+    count_plain(monkeypatch, "volume_tdisf")
     s, p = shared(name)
     ref, _ = shared(name)
-    volume.reset_counters()
+    tracing.reset()
     s.run(3, dt=p.dt)
     s.run(2, dt=p.dt)
-    launches = volume.volume_tdisf.launches
+    launches = launched()
     ref.run(5, dt=p.dt, graph=False)
     n = max(SHARED[name]) + 1
     assert s.run_path.endswith(f"captured (shards on {n} cards)")
@@ -327,7 +328,7 @@ def test_same_card_neighbours_equal_eager(name, monkeypatch):
     # a cut per exchange still: each exchange crosses the two cards
     assert len(s._graph.cuts) == CASES[name][2]
     assert check_schedule(s, 4) > 0
-    volume.reset_counters()
+    tracing.reset()
 
 
 def test_card_waits_rule_with_shared_cards():
@@ -360,7 +361,7 @@ def test_shard_without_a_type_makes_no_segment(monkeypatch):
     volume call carries an empty segment; captured on 4 stand-in cards it
     is the eager step bit for bit."""
     from hifiles_tpu_torch import periodic_mixed_mesh_2d as port_mixed_mesh
-    f, plain = volume.volume_tdisf, volume.volume_tdisf_many_ref
+    plain = volume.volume_tdisf_many_ref
     sizes = []
 
     def counted(calls, prm):

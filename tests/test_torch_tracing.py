@@ -15,7 +15,11 @@
   where the mesh has boundary faces, whose count (2 nx nz in a channel)
   is the counter ``boundary_faces``;
 - the driver's ``wall seconds:`` line keeps its parts and ``--profile``
-  still writes its trace, whose ``hf.*`` ranges nest as the record.
+  still writes its trace, whose ``hf.*`` ranges nest as the record;
+- the hand kernels' launch counts: every registered kernel in the record
+  by its number, a capture holds its launches (also one that cannot
+  count nodes, and keeps no capture then), each replay counts them, and
+  reset zeroes them (a launches-only reset, them alone).
 """
 
 import json
@@ -61,6 +65,64 @@ def spans_named(rec, name):
 
 def children(rec, parent):
     return [s for s in rec["spans"] if s.parent == parent.id]
+
+
+def test_launch_record_lists_every_kernel_by_number():
+    launches = tracing.record()["launches"]
+    numbers = [tracing._rec.kernels[k][0] for k in launches]
+    assert numbers == sorted(numbers)
+    assert set(launches) == set(tracing._rec.kernels) >= {
+        "volume_tdisf", "flux_point_qn", "solution_point_gradient",
+        "common_flux"}
+    assert launches["volume_tdisf"] == dict(
+        launches=0, by_variant={}, segments=0, by_shape={}, by_group={})
+    assert launches["common_flux"] == dict(launches=0, by_variant={})
+
+
+@pytest.mark.parametrize("nodes", [False, True], ids=["cannot count",
+                                                      "counts nodes"])
+def test_a_capture_holds_its_launches_for_each_replay(nodes):
+    tracing.launch("common_flux", "a")
+    with tracing.capture((lambda: 7) if nodes else None) as held:
+        tracing.launch("common_flux", "a")
+        tracing.launch("volume_tdisf", "v", [(3, 4), (2, 5)])
+    rec = tracing.record()
+    assert rec["launches"]["common_flux"]["launches"] == 1
+    assert rec["launches"]["volume_tdisf"]["launches"] == 0
+    assert len(rec["captures"]) == int(nodes)
+    assert rec["counters"].get("captured_nodes") == (7 if nodes else None)
+    for _ in range(3):
+        tracing.replay(held)
+    launches = tracing.record()["launches"]
+    assert launches["common_flux"] == dict(launches=4, by_variant={"a": 4})
+    assert launches["volume_tdisf"] == dict(
+        launches=3, by_variant={"v": 3}, segments=6,
+        by_shape={("v", 3, 4): 3, ("v", 2, 5): 3},
+        by_group={("v", ((2, 5), (3, 4))): 3})
+    tracing.reset()
+    assert all(c["launches"] == 0 and not c["by_variant"]
+               for c in tracing.record()["launches"].values())
+
+
+def test_a_launches_only_reset_keeps_the_rest_of_the_record():
+    """reset(launches_only=True) zeroes the launch counts and keeps the
+    spans, totals, counters and captures (set-up's, which a reader of the
+    record after set-up needs)."""
+    with tracing.span("setup.x"):
+        pass
+    tracing.counter("boundary_faces", 12)
+    with tracing.capture(lambda: 3):
+        pass
+    tracing.launch("common_flux", "a")
+    before = tracing.record()
+    tracing.reset(launches_only=True)
+    after = tracing.record()
+    assert after["launches"]["common_flux"] == dict(launches=0,
+                                                    by_variant={})
+    assert before["launches"]["common_flux"]["launches"] == 1
+    for key in ("spans", "totals", "counters", "captures"):
+        assert after[key] == before[key]
+    assert after["counters"] == dict(boundary_faces=12, captured_nodes=3)
 
 
 def test_spans_nest_and_name_their_parents():

@@ -19,14 +19,14 @@ from hifiles_tpu.mesh.generate import channel_hex_mesh, periodic_hex_mesh
 from hifiles_tpu.solver.solver import Solver as JaxSolver
 
 import hifiles_tpu_torch
-from hifiles_tpu_torch.solver import volume
+from hifiles_tpu_torch import tracing
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "scripts"))
 sys.path.insert(0, os.path.dirname(__file__))
 from chip_smoke import CHANNEL_DECK, channel_bf1_input  # noqa: E402
-from test_torch_graph import IdentityGraph  # noqa: E402
+from test_torch_graph import IdentityGraph, count_plain  # noqa: E402
 import validate_torch_tgv as vt  # noqa: E402
 
 torch.set_num_threads(1)
@@ -82,20 +82,15 @@ def test_tke_curve_matches_jax(monkeypatch):
     s = IdentityGraph.seam(hifiles_tpu_torch.Solver(
         p, hifiles_tpu_torch.periodic_hex_mesh(n1, n1, n1), device="cpu",
         dtype=torch.float64))
-    f = volume.volume_tdisf
-    plain = volume.volume_tdisf_many_ref
-
-    def counted(calls, prm):
-        # the card's launch count: one a grouped call
-        f.launches += 1
-        return plain(calls, prm)
-    monkeypatch.setattr(volume, "volume_tdisf_many_ref", counted)
-    volume.reset_counters()
+    # the card's launch count: one a grouped call
+    count_plain(monkeypatch, "volume_tdisf")
+    tracing.reset()
     ts, tkes = vt.tke_curve(s, t_end)
     steps = chunk * (len(ts_j) - 1)
-    assert (s.run_path, s.captures, s.replays, f.launches) == (
+    launches = tracing.record()["launches"]["volume_tdisf"]["launches"]
+    assert (s.run_path, s.captures, s.replays, launches) == (
         "SoA (fast) captured", 1, steps - 1, s.n_stages * steps)
-    volume.reset_counters()
+    tracing.reset()
     np.testing.assert_allclose(ts, ts_j, rtol=1e-15, atol=0)
     assert np.abs(tkes - tke_j).max() <= 1e-12 * np.abs(tke_j).max()
     assert tkes[0] == pytest.approx(0.125, rel=1e-6)

@@ -19,11 +19,17 @@ from jax.experimental import pallas as pl
 from hifiles_tpu.solver import pallas_kernels as pk
 from hifiles_tpu.solver import residual_soa as jrs
 
+from hifiles_tpu_torch import tracing
 from hifiles_tpu_torch.solver.volume import (SGS_NONE, SGS_SMAGORINSKY,
                                               SGS_WALE, VolumeParams,
                                               volume_tdisf, volume_tdisf_ref)
 
 torch.set_num_threads(1)
+
+
+def launched():
+    """The volume kernel's launches in the program's record."""
+    return tracing.record()["launches"]["volume_tdisf"]["launches"]
 
 E, U, F, D = 8, 125, 5, 3
 KW = dict(gamma=1.4, mu=1e-3, prandtl=0.72)
@@ -75,11 +81,11 @@ def test_volume_ref_matches_pallas(viscous, geo, monkeypatch):
 def test_wrapper_dispatches_plain_on_cpu(viscous):
     u, grad, jg = (torch.from_numpy(a) for a in inputs(seed=1))
     g = grad if viscous else None
-    before = volume_tdisf.launches
+    before = launched()
     got = volume_tdisf(u, g, jg, PRM[viscous])
     want = volume_tdisf_ref(u, g, jg, PRM[viscous])
     assert torch.equal(got, want)
-    assert volume_tdisf.launches == before == 0
+    assert launched() == before == 0
 
 
 def test_wrapper_rejects_bad_inputs():
@@ -96,7 +102,7 @@ def test_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError):
         volume_tdisf(u.transpose(0, 2).contiguous().transpose(0, 2), grad,
                      jg, prm)
-    assert volume_tdisf.launches == 0
+    assert launched() == 0
 
 
 # ----------------------------------------------------------------------
@@ -188,7 +194,7 @@ def test_volume_ref_options_match_jax_planes(variant, geo):
     assert np.isfinite(want).all() and scale > 0
     np.testing.assert_allclose(got.numpy(), want, rtol=0,
                                atol=1e-12 * max(scale, 1.0))
-    assert volume_tdisf.launches == 0
+    assert launched() == 0
 
 
 @pytest.mark.parametrize("geo", ["full", "broadcast"])
@@ -209,7 +215,7 @@ def test_volume_ref_2d_matches_jax_planes(variant, geo):
     assert np.isfinite(want).all() and scale > 0
     np.testing.assert_allclose(got.numpy(), want, rtol=0,
                                atol=1e-12 * max(scale, 1.0))
-    assert volume_tdisf.launches == 0
+    assert launched() == 0
 
 
 def test_wrapper_rejects_bad_2d_inputs():
@@ -228,7 +234,7 @@ def test_wrapper_rejects_bad_2d_inputs():
         volume_tdisf(u, grad, jg[:, :1].contiguous(), prm)
     with pytest.raises(ValueError):
         volume_tdisf(u, grad, jg, prm, extra=torch.cat([xf, xf[:1]]))
-    assert volume_tdisf.launches == 0
+    assert launched() == 0
 
 
 def test_volume_ref_options_change_the_flux():
@@ -271,4 +277,4 @@ def test_wrapper_rejects_bad_feature_inputs():
     with pytest.raises(ValueError):
         volume_tdisf(torch.cat([u, u[:, :2]], 1), None, jg,
                      VolumeParams(viscous=False))
-    assert volume_tdisf.launches == 0
+    assert launched() == 0

@@ -16,7 +16,7 @@ import torch
 
 from hifiles_tpu.mesh.generate import periodic_mixed_mesh_2d
 
-from hifiles_tpu_torch import MixedSolver
+from hifiles_tpu_torch import MixedSolver, tracing
 from hifiles_tpu_torch.convert import mesh_from, run_input_from
 from hifiles_tpu_torch.parallel import ShardedMixedSolver, select_devices
 from hifiles_tpu_torch.solver import volume as V
@@ -32,7 +32,12 @@ def zero_counters():
     """The counting stand-in counts on the kernel's counters, which the
     CPU tests elsewhere expect at 0: set them back after each test."""
     yield
-    V.reset_counters()
+    tracing.reset()
+
+
+def launches():
+    """The volume kernel's launch counts in the program's record."""
+    return tracing.record()["launches"]["volume_tdisf"]
 
 
 BASE = V.VolumeParams(gamma=1.4, prandtl=0.72, mu=0.05, viscous=True,
@@ -85,11 +90,11 @@ def test_many_matches_per_call_plain_version(name):
 
 
 def test_many_counts_nothing_on_the_cpu():
-    V.reset_counters()
+    tracing.reset()
     V.volume_tdisf_many([call(3, 8, 3, 5, 0), call(3, 9, 3, 5, 1)], BASE)
-    f = V.volume_tdisf
-    assert (f.launches, f.segments, len(f.by_shape), len(f.by_group)) == \
-        (0, 0, 0, 0)
+    f = launches()
+    assert (f["launches"], f["segments"], len(f["by_shape"]),
+            len(f["by_group"])) == (0, 0, 0, 0)
 
 
 MIXED = {
@@ -146,20 +151,16 @@ def counting_plain(monkeypatch):
     """A plain version of the grouped call that counts each call as one
     launch of its blocks (the card's launches on the CPU); returns the
     list of the calls' sizes."""
-    f = V.volume_tdisf
     plain = V.volume_tdisf_many_ref
     sizes = []
 
     def counted(calls, prm):
         sizes.append(len(calls))
-        f.launches += 1
-        f.segments += len(calls)
-        f.by_variant[V.call_variant(calls[0], prm)] += 1
-        f.by_shape.update((V.call_variant(c, prm), c.u.shape[0],
-                           c.u.shape[2]) for c in calls)
+        tracing.launch("volume_tdisf", V.call_variant(calls[0], prm),
+                       [(c.u.shape[0], c.u.shape[2]) for c in calls])
         return plain(calls, prm)
     monkeypatch.setattr(V, "volume_tdisf_many_ref", counted)
-    V.reset_counters()
+    tracing.reset()
     return sizes
 
 
@@ -185,13 +186,14 @@ def test_residual_stage_issues_one_grouped_call(monkeypatch, make, blocks):
     sizes = counting_plain(monkeypatch)
     sums, _ = s._monitor_residual(1)
     assert np.isfinite(sums).all()
-    f = V.volume_tdisf
-    assert sizes == [blocks] and f.launches == 1 and f.segments == blocks
-    assert sum(f.by_shape.values()) == blocks
+    f = launches()
+    assert sizes == [blocks] and f["launches"] == 1 and \
+        f["segments"] == blocks
+    assert sum(f["by_shape"].values()) == blocks
     want = {(U, E) for U, E in ((b.ops.n_upts, b.n_eles)
                                 for b in s._blocks)}
-    assert {(U, E) for _, U, E in f.by_shape} == want
-    assert len(f.by_variant) == 1
+    assert {(U, E) for _, U, E in f["by_shape"]} == want
+    assert len(f["by_variant"]) == 1
 
 
 def test_over_integration_issues_two_grouped_calls(monkeypatch):
@@ -210,7 +212,7 @@ def test_over_integration_issues_two_grouped_calls(monkeypatch):
     sizes = counting_plain(monkeypatch)
     sums, _ = s._monitor_residual(1)
     assert np.isfinite(sums).all()
-    f = V.volume_tdisf
-    assert sizes == [4, 4] and f.launches == 2 and f.segments == 8
-    assert sorted(f.by_variant) == ["D3F5+inviscid", "D3F5+viscous"]
-    assert {U for _, U, _ in f.by_shape} == {27, 125}
+    f = launches()
+    assert sizes == [4, 4] and f["launches"] == 2 and f["segments"] == 8
+    assert sorted(f["by_variant"]) == ["D3F5+inviscid", "D3F5+viscous"]
+    assert {U for _, U, _ in f["by_shape"]} == {27, 125}
